@@ -1,11 +1,11 @@
 // Native BVH builder — the performance-critical scene-compile step.
 //
-// TPU-native analog of the reference's KD-tree construction
-// (/root/reference/src/KDTree.cpp:87-151): where the reference builds a
-// pointer tree with median-of-mins splits and straddler duplication, this
-// builds a binned-SAH *BVH* (each triangle in exactly one leaf) and emits
-// the flattened SoA arrays (preorder + skip links, fixed-width leaves)
-// that the TPU traversal kernel consumes directly. Exposed via a C ABI and
+// Analog of the reference's KD-tree construction (its
+// src/KDTree.cpp:87-151): where the reference builds a pointer tree with
+// median-of-mins splits and straddler duplication, this builds a
+// binned-SAH *BVH* (each triangle in exactly one leaf) and emits the
+// flattened SoA arrays (preorder + skip links, fixed-width leaves) that
+// the device-side BVH walk consumes directly. Exposed via a C ABI and
 // loaded from Python with ctypes (tracer/accel/native.py); the numpy
 // builder in tracer/accel/bvh.py is the fallback and the semantic spec.
 //

@@ -3,8 +3,6 @@ sharded render must be bitwise-identical to the single-device render, and
 gradients must flow through the shard_map (psum'ed parameter grads).
 """
 
-import dataclasses
-
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -74,22 +72,3 @@ def test_train_step_runs_and_reduces():
     assert moved > 0
     # replicated across devices (no per-shard divergence)
     assert np.isfinite(np.asarray(new_scene.sph_center)).all()
-
-
-def test_kernels_under_shard_map():
-    """The Pallas kernel path (first-hit + shade kernels, interpret mode
-    on CPU) must produce the SAME radiance inside render_pixels_sharded
-    as the jnp path — the combination a real pod runs for the first time
-    (VERDICT r3 missing #3)."""
-    scene = _tiny_scene()
-    cam = default_camera(aspect=WIDTH / HEIGHT)
-    pixel_ids = jnp.arange(WIDTH * HEIGHT, dtype=jnp.int32)
-    key = jax.random.key(0)
-    mesh = make_ray_mesh(n_dp=4, n_sp=2)
-    cfg_on = dataclasses.replace(CFG, kernels="on")
-    got = np.asarray(render_pixels_sharded(
-        scene, cam, cfg_on, WIDTH, HEIGHT, pixel_ids, 2, key, mesh))
-    want = np.asarray(render_pixels_sharded(
-        scene, cam, CFG, WIDTH, HEIGHT, pixel_ids, 2, key, mesh))
-    assert np.allclose(got, want, atol=2e-5), np.abs(got - want).max()
-    assert np.isfinite(got).all()

@@ -1,48 +1,18 @@
-"""Sorted Pallas texel-gradient fold (kernels/fold.py) vs the flat
-scatter-add, in interpreter mode (the TPU twin is exercised by bench.py
-and the TPU fwd+bwd protocol)."""
+"""The texel-cotangent fold of the record-replay backward
+(integrator.fold_texel_updates) vs numpy's unbuffered np.add.at."""
 
 import jax
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
-from tracer.kernels import fold
+from tracer.render.integrator import fold_texel_updates
 
 
 def _flat(data, idx, g):
     i3 = jnp.concatenate([idx * 3, idx * 3 + 1, idx * 3 + 2])
     v3 = jnp.concatenate([g[0], g[1], g[2]])
     return data.reshape(-1).at[i3].add(v3).reshape(data.shape)
-
-
-def test_sorted_fold_matches_scatter():
-    key = jax.random.key(0)
-    P, M = 20000, 1 << 17
-    idx = jax.random.randint(key, (M,), 0, P, jnp.int32)
-    g = jax.random.normal(key, (3, M), jnp.float32)
-    data = jax.random.normal(jax.random.fold_in(key, 1), (P, 3))
-    want = _flat(data, idx, g)
-    got = fold.sorted_fold(data, idx, g[0], g[1], g[2], interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               atol=2e-4, rtol=1e-5)
-
-
-def test_sorted_fold_skewed_and_empty_windows():
-    """Hot texels (2^17 updates on a handful of ids) + untouched windows."""
-    key = jax.random.key(2)
-    P, M = 3 * fold.W + 7, 1 << 15
-    hot = jax.random.randint(key, (M // 2,), 0, 5, jnp.int32)
-    rest = jax.random.randint(jax.random.fold_in(key, 1), (M - M // 2,),
-                              2 * fold.W, P, jnp.int32)
-    idx = jnp.concatenate([hot, rest])
-    g = jax.random.normal(key, (3, M), jnp.float32)
-    data = jnp.zeros((P, 3), jnp.float32)
-    want = _flat(data, idx, g)
-    got = fold.sorted_fold(data, idx, g[0], g[1], g[2], interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               atol=2e-3, rtol=1e-5)
-    # window 1 untouched -> exactly zero
-    assert float(jnp.abs(got[fold.W:2 * fold.W]).max()) == 0.0
 
 
 def test_fold_updates_fallback_matches():
@@ -52,7 +22,39 @@ def test_fold_updates_fallback_matches():
     g = jax.random.normal(key, (2, 3, M), jnp.float32)
     data = jnp.zeros((P, 3), jnp.float32)
     gs = [tuple(g[b, a] for a in range(3)) for b in range(2)]
-    got = fold.fold_updates(data, [idx[0], idx[1]], gs, use_kernel=False)
+    got = fold_texel_updates(data, [idx[0], idx[1]], gs)
     want = _flat(_flat(data, idx[0], g[0]), idx[1], g[1])
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                atol=1e-5)
+
+
+def _ids(kind, rs, P, M):
+    if kind == "duplicates":      # every id hit many times
+        return rs.randint(0, 37, M)
+    if kind == "empty":           # no updates at all
+        return np.zeros(0, np.int64)
+    # skewed: half the stream on 3 hot texels, the rest over a far window
+    hot = rs.randint(0, 3, M // 2)
+    return np.concatenate([hot, rs.randint(P - 50, P, M - M // 2)])
+
+
+@pytest.mark.parametrize("kind", ["duplicates", "empty", "skewed"])
+def test_fold_matches_add_at(kind):
+    rs = np.random.RandomState(7)
+    P, M = 300, 4000
+    # index arrays keep a per-bounce shape, as the record does
+    ids = [_ids(kind, rs, P, M) for _ in range(2)]
+    ids = [ix.reshape(-1, 8) if ix.size else ix for ix in ids]
+    gs = [tuple(rs.randn(*ix.shape).astype(np.float32) for _ in range(3))
+          for ix in ids]
+    data = rs.randn(P, 3).astype(np.float32)
+    want = data.astype(np.float64)
+    for ix, g in zip(ids, gs):
+        np.add.at(want, ix.reshape(-1),
+                  np.stack([c.reshape(-1) for c in g], -1))
+    got = fold_texel_updates(
+        jnp.asarray(data), [jnp.asarray(ix, jnp.int32) for ix in ids],
+        [tuple(jnp.asarray(c) for c in g) for g in gs])
+    np.testing.assert_allclose(np.asarray(got), want, atol=2e-4, rtol=1e-5)
+    if kind == "empty":
+        np.testing.assert_array_equal(np.asarray(got), data)

@@ -111,7 +111,7 @@ def test_golden(case):
         f"missing golden {gpath}; run `python tests/test_golden_images.py "
         f"regen`")
     gold = np.load(gpath)
-    # CPU/TPU may differ by accumulated ulps; the structure must be tight
+    # backends may differ by accumulated ulps; the structure must be tight
     err = np.abs(img - gold)
     assert err.mean() < 5e-3 and err.max() < 0.15, (
         f"self-golden drift: mean={err.mean():.5f} max={err.max():.3f}")
@@ -138,6 +138,49 @@ def test_self_golden(case):
     assert err.mean() < 5e-3 and err.max() < 0.15, (
         f"self-golden drift: mean={err.mean():.5f} max={err.max():.3f}")
     assert np.isfinite(img).all()
+
+
+# GPU vs the committed CPU goldens: the same mean bound, but the 0.15 max
+# bound may fail on at most 0.5% of pixels. Measured on an H100: three
+# scenes match to ~1e-6, while random_spheres differs by more than 0.15 at
+# 8 of 5,184 pixels (max 0.34), all where rays graze its 100x100 floor
+# near the horizon. There t = (D - o.n) / (d.n) divides by a d.n near zero,
+# so last-bit differences (fused multiply-adds, transcendental ulps) move
+# the hit point far enough to change a shadow or bounce decision.
+GPU_OUTLIER_SHARE = 0.005
+
+
+def gpu_drift(img, gold):
+    """(ok, message) for a GPU render against its CPU golden."""
+    err = np.abs(img - gold)
+    share = float((err.max(-1) > 0.15).mean())
+    msg = (f"mean={err.mean():.6f} max={err.max():.4f} "
+           f"share>0.15={share:.5f}")
+    return (bool(np.isfinite(img).all() and err.mean() < 5e-3
+                 and share <= GPU_OUTLIER_SHARE), msg)
+
+
+GPU_CASES = [c for c in SELF_CASES
+             if c[0] in ("single_square", "random_spheres",
+                         "debug_refraction")] + [
+    (c[0], c[2], c[3], c[4], c[5]) for c in CASES if c[0] == "cornell_box"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GPU_CASES, ids=[c[0] for c in GPU_CASES])
+def test_self_golden_on_gpu(case, gpu):
+    """The committed CPU goldens hold on the GPU (gpu_drift): contractions
+    run at Precision.HIGHEST (no TF32), so only reduction order and
+    last-bit differences remain, which can flip a Monte Carlo decision
+    where a ray grazes a surface."""
+    import jax
+
+    scene_name, w, h, spp, bounces = case
+    with jax.default_device(gpu):
+        img = _render(scene_name, w, h, spp, bounces)
+    gold = np.load(os.path.join(GOLD, f"{scene_name}_{w}x{h}_{spp}spp.npy"))
+    ok, msg = gpu_drift(img, gold)
+    assert ok, f"GPU drift: {msg}"
 
 
 def regen():

@@ -16,6 +16,8 @@ import sys
 
 import pytest
 
+from tracer import compile_cache
+
 
 def _free_port():
     s = socket.socket()
@@ -25,17 +27,16 @@ def _free_port():
     return port
 
 
-def test_two_process_render_matches_single():
+def test_two_process_render_matches_single(tmp_path):
     here = os.path.dirname(os.path.abspath(__file__))
     worker = os.path.join(here, "multiproc_worker.py")
     port = _free_port()
-    outs = [os.path.join("/tmp", f"mp_worker_{port}_{i}.json")
-            for i in range(2)]
+    outs = [str(tmp_path / f"mp_worker_{i}.json") for i in range(2)]
     env = dict(os.environ)
     env.pop("JAX_PLATFORMS", None)
     # workers must not inherit the 8-device flag from conftest
     env["XLA_FLAGS"] = ""
-    env["JAX_COMPILATION_CACHE_DIR"] = "/tmp/tracer-jax-cache"
+    env["JAX_COMPILATION_CACHE_DIR"] = compile_cache.cache_dir()
     procs = [subprocess.Popen(
         [sys.executable, worker, str(i), str(port), outs[i]],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)

@@ -89,13 +89,14 @@ def _vjp(scene, cfg, o, d, t, keys, g, hand):
         return out, vjp(g)
 
 
-@pytest.mark.parametrize("compat,kernels", [
-    ("reference", "off"), ("physical", "off"), ("reference", "on")])
-def test_hand_bwd_matches_autodiff(compat, kernels):
-    """kernels='on' additionally routes the reverse sweep through the
-    Pallas twin (kernels/shade_bwd.py, interpret mode here)."""
+@pytest.mark.parametrize("compat,max_bounces", [
+    ("reference", 4), ("physical", 4), ("reference", 1), ("physical", 2)])
+def test_hand_bwd_matches_autodiff(compat, max_bounces):
+    """max_bounces 1 and 2 cover the unrolled last bounce with no and one
+    scanned bounce before it."""
     scene = _scene()
-    cfg = RenderConfig(max_bounces=4, compat=compat, kernels=kernels)
+    assert scene.pair_mode and scene.tex_data.shape[0] > 1
+    cfg = RenderConfig(max_bounces=max_bounces, compat=compat)
     o, d, t, keys = _rays()
     g = jax.random.normal(jax.random.key(5), (o.shape[0], 3))
 

@@ -1,11 +1,13 @@
-"""tracer — a TPU-native differentiable ray tracer built from scratch in JAX.
+"""tracer — a differentiable wavefront ray tracer built from scratch in JAX,
+running on an NVIDIA GPU through XLA.
 
 Capability parity target: Kuuro-neko/HAI719-Raytracing (a C++ CPU path
-tracer; see SURVEY.md). Architecture is TPU-first, not a translation:
+tracer; see SURVEY.md). Architecture is batch-first, not a translation:
 
 - rays are SoA batches `(origins[N,3], dirs[N,3], times[N])`, never objects;
-- sphere/quad intersection is batched into `[N,3] @ [3,K]` contractions that
-  map onto the MXU (see `tracer/geometry/primitives.py`);
+- sphere/quad intersection tests every ray against the whole primitive
+  table at once, as fused elementwise XLA code
+  (see `tracer/geometry/primitives.py`);
 - the reference's pointer KD-tree (`src/KDTree.cpp`) is recast as a flattened
   SoA BVH with stackless skip-link traversal (`tracer/accel/bvh.py`);
 - the recursive integrator (`src/Scene.h:258-342`) is a wavefront bounce loop

@@ -1,7 +1,8 @@
-"""Flattened SoA BVH — the TPU-native recast of the reference's pointer
-KD-tree (`/root/reference/src/KDTree.{hpp,cpp}`).
+"""Flattened SoA BVH — the batched recast of the reference's pointer
+KD-tree (its `src/KDTree.{hpp,cpp}`).
 
-Differences are deliberate and TPU-motivated (SURVEY.md §2.13):
+Differences are deliberate and motivated by batched traversal (SURVEY.md
+§2.13):
 
 - object-median *BVH* (each triangle in exactly one leaf) instead of a
   spatial KD-tree with straddler duplication (`KDTree.cpp:130-140`) — no
@@ -9,7 +10,7 @@ Differences are deliberate and TPU-motivated (SURVEY.md §2.13):
   static-shaped gather instead of a data-dependent loop;
 - nodes are flattened to SoA arrays in DFS preorder with *skip links*, so
   traversal is a stackless `while`-loop (`i = hit ? i+1 : skip[i]`) that
-  vectorizes across a ray batch under `vmap`/Pallas — no recursion, no
+  vectorizes across a ray batch under `vmap` — no recursion, no
   per-lane stack (`KDTree.cpp:31-69` is the recursive original);
 - boxes are built over triangles scaled by TRIANGLE_SCALING about the origin
   (`Mesh.h:23`, `KDTree.cpp:38-40`), so culling is conservative w.r.t. the

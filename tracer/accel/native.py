@@ -1,10 +1,11 @@
 """ctypes binding to the native C++ BVH builder (native/bvh_builder.cpp).
 
-Auto-builds the shared library on first use (g++ is baked into the image);
-falls back silently to the numpy builder when unavailable. The native
-builder additionally uses binned SAH, producing better trees than the
-numpy median-split fallback for large meshes (flamingo.off is 52,895
-triangles — reference KD build is the heavy init step, SURVEY.md §3.1).
+Auto-builds the shared library on first use (`make -C native`, which needs
+a C++ compiler). When that fails, the numpy builder is used instead, with a
+warning, and `builder()` names the builder that runs. The native builder
+uses binned SAH, producing better trees than the numpy median-split
+fallback for large meshes (flamingo.off is 52,895 triangles — reference KD
+build is the heavy init step, SURVEY.md §3.1).
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import warnings
 
 import numpy as np
 
@@ -19,6 +21,7 @@ from tracer.accel.bvh import FlatBVH
 
 _LIB = None
 _TRIED = False
+_ERROR = None   # why the native library is unavailable
 
 
 def _lib_path() -> str:
@@ -27,7 +30,7 @@ def _lib_path() -> str:
 
 
 def _load():
-    global _LIB, _TRIED
+    global _LIB, _TRIED, _ERROR
     if _TRIED:
         return _LIB
     _TRIED = True
@@ -40,7 +43,11 @@ def _load():
             subprocess.run(["make", "-C", src_dir], check=True,
                            capture_output=True)
         lib = ctypes.CDLL(path)
-    except (OSError, subprocess.CalledProcessError):
+    except (OSError, subprocess.CalledProcessError) as e:
+        detail = getattr(e, "stderr", b"") or b""
+        _ERROR = f"{e}; {detail.decode(errors='replace')[-300:]}".strip()
+        warnings.warn(f"native BVH builder unavailable ({_ERROR}); "
+                      "using the numpy builder", RuntimeWarning)
         return None
 
     i32p = ctypes.POINTER(ctypes.c_int32)
@@ -55,6 +62,13 @@ def _load():
     lib.tracer_free.argtypes = [ctypes.c_void_p]
     _LIB = lib
     return lib
+
+
+def builder() -> str:
+    """Which BVH builder compile_scene uses by default."""
+    if _load() is not None:
+        return "native C++ SAH (native/libtracer_native.so)"
+    return f"numpy median split (native unavailable: {_ERROR})"
 
 
 def build_bvh_native(tri_lo: np.ndarray, tri_hi: np.ndarray,

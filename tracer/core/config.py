@@ -1,7 +1,7 @@
 """Render configuration.
 
 Mirrors every compile-time constant of the reference
-(`/root/reference/src/Constants.h:4-18`) as a runtime config, with the
+(`src/Constants.h:4-18`) as a runtime config, with the
 reference values as defaults. `compat="reference"` replicates the reference's
 quirks bit-for-bit in semantics (see SURVEY.md §2.19); `compat="physical"`
 fixes them (correct per-light shading, no /MAXBOUNCES normalization, correct
@@ -21,10 +21,8 @@ class RenderConfig:
     shadow_rays: int = 10       # NB_ECH
 
     # Reference: src/Constants.h:15-16 (KD build params; our BVH
-    # analogues — the reference uses 40 tris/leaf). 16 measured best for
-    # the packet walk on v5e: incoherent backrooms walks 235 -> 166 ms
-    # vs leaf 4 (benchmarks/walk_sort_exp.py) — per-node scalar overhead
-    # dominates, so fewer/fatter leaves win even with 4x the tri tests.
+    # analogues — the reference uses 40 tris/leaf). The leaf width of 16
+    # is not yet tuned for the per-ray walk on the GPU.
     bvh_leaf_size: int = 16
     bvh_max_depth: int = 64
 
@@ -43,11 +41,6 @@ class RenderConfig:
     # RNG seed for the counter-based sampler.
     seed: int = 0
 
-    # Pallas kernel dispatch: "auto" = use the fused TPU kernels when
-    # running on a real TPU, jnp everywhere else; "on" forces kernels
-    # (interpret mode off-TPU — slow, for parity tests); "off" = pure jnp.
-    kernels: str = "auto"
-
     # Rays per device-step batch (wavefront width). Pixels*samples are
     # processed in chunks of this size to bound device memory.
     rays_per_batch: int = 1 << 20
@@ -58,20 +51,6 @@ class RenderConfig:
     # "off" = plain remat'd scan autodiff.
     custom_vjp: str = "on"
 
-    # Sorted ray queues for the BVH traversal kernel: "auto" buckets
-    # rays by direction octant + coarse position before the packet walk
-    # (coherent packets prune; measured 3.5x on backrooms_pool whose
-    # post-bounce rays are fully incoherent), "off" walks in ray order.
-    ray_sort: str = "auto"
-
-    # Packed-u32 / pair-packed texture-atlas fast paths. The packed twins
-    # encode the PRISTINE u8 atlases; an optimization loop that moves
-    # tex_data/nm_data off the u8 grid must render with "off" (the exact
-    # [P,3] row-gather path) or the forward silently uses stale texels
-    # while gradients flow to the live arrays (tracer/train.py sets this
-    # automatically). "auto" = on whenever kernels are on.
-    packed_atlas: str = "auto"
-
     def __post_init__(self):
         if self.max_bounces < 1:
             # the trace drivers unroll the final bounce out of the scan,
@@ -79,12 +58,5 @@ class RenderConfig:
             raise ValueError("max_bounces must be >= 1")
         if self.compat not in ("reference", "physical"):
             raise ValueError(f"unknown compat mode: {self.compat!r}")
-        if self.kernels not in ("auto", "on", "off"):
-            raise ValueError(f"unknown kernels mode: {self.kernels!r}")
         if self.custom_vjp not in ("on", "off"):
             raise ValueError(f"unknown custom_vjp mode: {self.custom_vjp!r}")
-        if self.packed_atlas not in ("auto", "off"):
-            raise ValueError(
-                f"unknown packed_atlas mode: {self.packed_atlas!r}")
-        if self.ray_sort not in ("auto", "off"):
-            raise ValueError(f"unknown ray_sort mode: {self.ray_sort!r}")

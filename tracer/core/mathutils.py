@@ -1,7 +1,7 @@
 """Pure-jnp shading math (differentiable).
 
-TPU-native equivalents of the reference's scalar helpers
-(`/root/reference/src/Functions.cpp:20-60`), vectorized over a leading ray
+Batched equivalents of the reference's scalar helpers
+(its `src/Functions.cpp:20-60`), vectorized over a leading ray
 axis. All functions broadcast: vectors are `[..., 3]`.
 """
 
@@ -48,10 +48,10 @@ def refract(d, n, etai_over_etat):
 def schlick_reflectance(cosine, ref_idx):
     """Schlick's approximation (reference: Functions.cpp:49-54).
 
-    pow(m, 5) is spelled as explicit multiplies so the Pallas shade kernel
-    (tracer/kernels/shade.py) can reproduce it bit-identically — jnp.power's
-    lowering is backend-dependent, and a 1-ULP difference here can flip a
-    glass ray's Bernoulli lobe choice."""
+    pow(m, 5) is spelled as explicit multiplies so the hand-written
+    backward (tracer/render/replay_bwd.py) reproduces it bit-identically —
+    jnp.power's lowering is backend-dependent, and a 1-ULP difference here
+    can flip a glass ray's Bernoulli lobe choice."""
     r0 = (1.0 - ref_idx) / (1.0 + ref_idx)
     r0 = r0 * r0
     m = jnp.maximum(1.0 - cosine, 0.0)

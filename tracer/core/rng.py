@@ -1,23 +1,22 @@
 """Counter-based RNG for the wavefront tracer.
 
 The reference uses a global / thread-local mt19937 stream
-(`/root/reference/src/Functions.cpp:4-8`, `main.cpp:181`). On TPU we need a
-stateless counter-based design: every random draw is a pure function of
+(its `src/Functions.cpp:4-8`, `main.cpp:181`). A batched device renderer
+needs a stateless counter-based design: every random draw is a pure function of
 (seed, pixel, sample, bounce, purpose), so forward and backward replay the
 identical Bernoulli/jitter decisions — which is what makes the stochastic
 shadow and glass paths differentiable-consistent and the renderer
 reproducible under any sharding.
 
 Implementation: a PCG output-hash chain (pcg_output_rxs_m_xs_32_32, the
-single-word hash recommended for GPU/TPU rendering by Jarzynski & Olano,
+single-word hash recommended for GPU rendering by Jarzynski & Olano,
 "Hash Functions for GPU Rendering", JCGT 2020). A "key" is a plain uint32
 array; deriving a sub-stream (`salted`) is one hash application; a uniform
-draw is one hash + a 24-bit mantissa scale. Everything is uint32 VPU
-arithmetic with no cross-lane traffic, so XLA fuses draws straight into the
+draw is one hash + a 24-bit mantissa scale. Everything is uint32
+elementwise arithmetic with no cross-ray traffic, so XLA fuses draws straight into the
 consuming compute — unlike threefry key-chains, which cost a 20-round block
-cipher per fold_in and dominated the profile. The same hash is trivially
-reimplementable inside Pallas kernels, keeping streams bit-identical
-between the jnp and megakernel paths.
+cipher per fold_in. The hand-written backward (render/replay_bwd.py)
+re-draws the forward's numbers bit for bit from the same keys.
 """
 
 from __future__ import annotations
@@ -35,9 +34,7 @@ SHADOW_BERNOULLI = 5
 
 # 2^32 / phi — Weyl increment for salts. Kept as a python int: a
 # module-level eager jnp scalar would be captured as a device-array
-# constant by every jit, which this environment's TPU runtime punishes by
-# permanently disabling async dispatch (every launch then pays a full
-# host<->device round trip).
+# constant by every jit.
 _GOLDEN = 0x9E3779B9
 
 

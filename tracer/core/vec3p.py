@@ -1,12 +1,11 @@
 """Planar 3-vector helpers: a vector batch is a tuple (x, y, z) of [N]
 arrays instead of one [N,3] array.
 
-Why: TPU vector registers are (8 sublanes, 128 lanes) tiles over the two
-minor dimensions. An [N,3] f32 array puts 3 in the lane dimension, so every
-elementwise op uses 3/128 lanes (~2%). Planar components put N in the lane
-dimension — full VPU utilization. Measured 3.1x on the candidate-
-intersection pass (benchmarks/layout_exp.py); the integrator hot path uses
-this layout throughout, converting to/from [N,3] only at API boundaries.
+Why: an [N,3] array has a 3-wide minor dimension, so elementwise chains
+over it read strided triples. Planar components are contiguous [N] arrays,
+one per axis, which XLA fuses into plain per-ray loops. The integrator hot
+path uses this layout throughout, converting to/from [N,3] only at API
+boundaries.
 
 All ops broadcast like jnp; a "vec" is any 3-tuple of broadcast-compatible
 arrays. Everything is differentiable.

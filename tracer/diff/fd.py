@@ -1,4 +1,4 @@
-"""Finite-difference gradient checking harness (BASELINE.json's
+"""Finite-difference gradient checking harness (BASELINE.md's
 "pixel-grad allclose vs central finite differences" metric).
 
 The discrete decisions inside the tracer (closest-hit argmin, BVH walk,

@@ -1,18 +1,20 @@
-"""Multi-HOST execution: jax.distributed process groups, host-major pod
+"""Multi-host execution: jax.distributed process groups, host-major
 meshes, and cross-host film gathering.
 
-The reference is strictly single-machine (`/root/reference/main.cpp:229-238`
-— pthread fork/join); this module is the SURVEY §5 / §7-stage-7 recast:
+The reference is strictly single-machine (its `main.cpp:229-238` —
+pthread fork/join); this module is the SURVEY §5 / §7-stage-7 recast:
 tiles×samples sharded over a (dp, sp) mesh whose dp axis is laid out
-host-major so independent pixel tiles span DCN (zero cross-host traffic in
-the forward pass) while the sample-psum and parameter-gradient reductions
-ride ICI within each host's chips.
+host-major, so independent pixel tiles span hosts (zero cross-host
+traffic in the forward pass) while the sample-psum and parameter-gradient
+reductions stay among each host's devices. On one host (one process, e.g.
+four GPUs joined all to all by NVLink) the same functions run unchanged:
+the mesh is then (devices // n_sp, n_sp).
 
-Typical pod-slice usage (one process per host):
+Typical multi-host usage (one process per host):
 
     from tracer.dist import multihost as mh
     mh.initialize()                       # jax.distributed from env vars
-    mesh = mh.make_pod_mesh()             # dp = hosts x leftover chips
+    mesh = mh.make_pod_mesh()             # dp = hosts x leftover devices
     img  = mh.render_image_multihost(scene, cam, cfg, mesh)   # full frame
 
 The same code path is exercised hardware-free by
@@ -54,11 +56,11 @@ def initialize(coordinator: Optional[str] = None,
 def make_pod_mesh(n_sp: Optional[int] = None) -> Mesh:
     """Host-major (dp, sp) mesh over ALL processes' devices.
 
-    sp (sample-psum, the collective-heavy axis) = chips WITHIN one host so
-    its reductions ride ICI; dp (independent pixel tiles) = hosts x the
-    remaining per-host chips, spanning DCN where traffic is ~zero. Device
-    order is jax.devices() sorted host-major (process_index, local order),
-    which IS jax.devices()' order."""
+    sp (sample-psum, the collective-heavy axis) = devices WITHIN one host,
+    so its reductions never cross hosts; dp (independent pixel tiles) =
+    hosts x the remaining per-host devices, where forward traffic is ~zero.
+    Device order is jax.devices() sorted host-major (process_index, local
+    order), which IS jax.devices()' order."""
     devs = jax.devices()
     n_hosts = jax.process_count()
     per_host = len(devs) // n_hosts

@@ -1,8 +1,8 @@
-"""Multi-chip / multi-host distribution via `shard_map` over a device mesh.
+"""Multi-device distribution via `shard_map` over a device mesh.
 
 The reference's entire parallelism story is one std::thread per scanline on
-one machine (`/root/reference/main.cpp:229-238`). The TPU-native recast
-(SURVEY.md §2 parallelism inventory):
+one machine (its `main.cpp:229-238`). The recast here (SURVEY.md §2
+parallelism inventory):
 
 - **dp** axis — data parallel over pixels/tiles: each device traces a
   disjoint slice of the pixel stream (the analog of scanline threads).
@@ -14,9 +14,10 @@ one machine (`/root/reference/main.cpp:229-238`). The TPU-native recast
   stages, no experts) — scene geometry and the material/texture tables are
   replicated per device; only *parameter gradients* (vertices, materials,
   texels, camera pose) need cross-device reduction, which autodiff inserts
-  as `psum` when differentiating through the `shard_map`. On a pod slice
-  the mesh is built (hosts, chips_per_host) so those reductions ride ICI
-  within a host-group and DCN across hosts.
+  as `psum` when differentiating through the `shard_map`. On one host of
+  four GPUs joined all to all by NVLink every pair of devices talks at the
+  same rate, so the mesh shape follows the algorithm alone: dp needs no
+  traffic in the forward pass, sp costs one psum of the pixel radiance.
 
 Determinism: pixel->device assignment is a pure function of (pixel id,
 mesh shape), so a resumed/elastic job re-renders identical pixels
@@ -42,11 +43,10 @@ from tracer.render.camera import Camera, generate_rays
 
 def make_ray_mesh(n_dp: Optional[int] = None, n_sp: int = 1,
                   devices=None) -> Mesh:
-    """A (dp, sp) mesh over the available devices.
-
-    On a real pod slice pass `devices` laid out host-major so `dp` spans
-    DCN (independent tiles — no traffic) and `sp` spans ICI (sample psum).
-    """
+    """A (dp, sp) mesh over the available devices, in jax.devices()
+    order. Across several hosts pass `devices` host-major, so that `sp`
+    (the sample psum) stays within a host and `dp` (independent tiles, no
+    forward traffic) spans hosts."""
     devices = devices if devices is not None else jax.devices()
     if n_dp is None:
         n_dp = len(devices) // n_sp
@@ -120,9 +120,9 @@ def train_step(scene, camera: Camera, cfg: RenderConfig, width: int,
     """One differentiable-rendering optimization step over the device
     mesh — a thin delegation to the product training machinery
     (`tracer.train.make_step`, the same pure step `fit()` jits), so the
-    sharded path exercises the same parameter handling, stale-pack guard
-    and optimizer plumbing as single-chip training. Jittable. Gradients cross the mesh
-    via the psums autodiff inserts for the shard_map — the TPU-native
+    sharded path exercises the same parameter handling and optimizer
+    plumbing as single-device training. Jittable. Gradients cross the
+    mesh via the psums autodiff inserts for the shard_map — the
     equivalent of an all-reduce over scanline workers.
 
     Returns (loss, new_scene, new_camera).
@@ -133,9 +133,6 @@ def train_step(scene, camera: Camera, cfg: RenderConfig, width: int,
 
     trainable = ["sph_center", "sph_radius", "mat_diffuse", "tex_data",
                  "mesh_verts", "cam_position"]
-    # tex_data is trainable: the packed-atlas twins would go stale after
-    # the first update -- render through the exact gather paths.
-    cfg = T.guard_config(cfg, trainable)
     opt = optax.sgd(lr)
     params = T.split_params(scene, camera, trainable)
     step_fn = T.make_step(opt, cfg, target, width, height, nsamples, mesh)

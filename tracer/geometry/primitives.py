@@ -1,16 +1,16 @@
 """Batched ray/primitive intersection (pure jnp, differentiable).
 
-TPU-native recast of the reference's per-object `intersect` methods:
-- `Sphere::intersect`   /root/reference/src/Sphere.h:91-132
+Batched recast of the reference's per-object `intersect` methods:
+- `Sphere::intersect`   src/Sphere.h:91-132
 - `Square::intersect`   /root/reference/src/Square.h:65-126
 - `Triangle::getIntersection` /root/reference/src/Triangle.h:77-126
 - `AABB::intersects`    /root/reference/src/AABB.h:48-65
 
 Instead of one ray vs one object, every function evaluates a ray *batch*
 `[N]` against a whole primitive *table* `[K]` at once; the inner products
-(`d·n`, `o·n`, `d·center`, ...) become `[N,3] @ [3,K]` contractions that XLA
-maps onto the MXU, and all branches become masks. Semantics replicate the
-reference exactly, including its quirks:
+(`d·n`, `o·n`, `d·center`, ...) are elementwise broadcasts that XLA fuses,
+and all branches become masks. Semantics replicate the reference exactly,
+including its quirks:
 
 - sphere: nearest quadratic root only — rays starting inside a sphere get NO
   hit (t<0 is rejected at Sphere.h:119), so a glass sphere refracts on entry
@@ -39,9 +39,8 @@ import jax.numpy as jnp
 
 from tracer.core.mathutils import dot, normalize
 
-# Python float, NOT an eager jnp scalar: a module-level device constant
-# gets captured into every jit and makes this environment's TPU runtime
-# fall back to synchronous dispatch for the rest of the process.
+# Python float, NOT an eager jnp scalar: a module-level device array would
+# be captured as a constant by every jit.
 INF = 3.0e38
 GLASS = 1
 
@@ -50,12 +49,12 @@ def _nk(a, b):
     """[N,3] x [K,3] -> [N,K] inner products.
 
     Deliberately a broadcast-multiply-sum, NOT a dot_general: the
-    contraction dim is 3 and K is ~a few dozen, so the MXU would run at <3%
-    utilization while the matmul boundary forces XLA to materialize every
-    [N,K] intermediate in HBM. As a VPU elementwise chain the whole
-    candidate computation fuses into one kernel (one read of the ray batch,
-    one write of t[N,K]) and stays exact f32 — no bf16 MXU rounding of
-    intersection geometry."""
+    contraction dim is 3, so a matmul would do no useful work while its
+    boundary forces XLA to materialize every [N,K] intermediate in device
+    memory. As an elementwise chain the whole candidate computation fuses
+    into one kernel (one read of the ray batch, one write of t[N,K]) and
+    stays exact f32 — no reduced-precision (TF32) rounding of intersection
+    geometry."""
     return jnp.sum(a[:, None, :] * b[None, :, :], axis=-1)
 
 
@@ -266,7 +265,7 @@ def bvh_closest_hit(o, d, scene, root: int, end: int, leaf_width: int = 4):
     """Closest triangle hit within one mesh's node range [root, end).
 
     o, d: [N,3]. Returns (t [N], tri [N] i32) — t=INF on miss. The walk is
-    the TPU-native equivalent of KDTree::intersect (KDTree.cpp:31-69):
+    the batched equivalent of KDTree::intersect (KDTree.cpp:31-69):
     preorder + skip links instead of recursion; fixed-width leaves so the
     leaf test is a static gather of `leaf_width` triangles.
     """
@@ -337,8 +336,8 @@ def mesh_closest_hits(o, d, scene, eps):
 # ---------------------------------------------------------------------------
 # Planar variants — the integrator hot path (see tracer/core/vec3p.py).
 # Same semantics as the array versions above (which remain the reference
-# implementation for unit tests); shapes are [K, N] with rays N in the TPU
-# lane dimension instead of [N, K] with K (or 3) wasting lanes.
+# implementation for unit tests); shapes are [K, N] with rays N minor
+# instead of [N, K].
 # ---------------------------------------------------------------------------
 
 from tracer.core import vec3p as vp  # noqa: E402

@@ -1,7 +1,7 @@
 """PPM image I/O (host-side, numpy).
 
-TPU-native replacement for the reference's `ppmLoader`
-(`/root/reference/src/imageLoader.cpp:21-103`): P3/P6 parsing with comment
+Replacement for the reference's `ppmLoader`
+(its `src/imageLoader.cpp:21-103`): P3/P6 parsing with comment
 eating, producing `uint8 [H, W, 3]` arrays that the scene compiler uploads as
 float32 texture atlases. Missing files return `None` and the caller falls
 back exactly like the reference (`imageLoader.cpp:24-28` logs and leaves the

@@ -1,7 +1,7 @@
 """The wavefront path-tracing integrator.
 
-TPU-native recast of `Scene::rayTraceRecursive` / `rayTrace`
-(`/root/reference/src/Scene.h:258-350`): the depth-6 recursion becomes a
+Wavefront recast of the reference's `Scene::rayTraceRecursive` /
+`rayTrace` (`src/Scene.h:258-350`): the depth-6 recursion becomes a
 `lax.scan` over bounces carrying a SoA ray-batch state
 (origin, direction, time, throughput, active, accumulated radiance); per
 bounce, one fused pass does closest-hit (planar-component candidate tests
@@ -27,11 +27,10 @@ compat=reference:
 compat=physical fixes all of the above.
 
 Layout: the whole hot path works on PLANAR vectors — tuples (x, y, z) of
-[N] arrays with rays in the TPU lane dimension — instead of [N,3] arrays
-whose 3-wide minor dim would waste 125/128 lanes on every elementwise op
-(see tracer/core/vec3p.py; measured 3.1x on the candidate pass alone).
-Candidate tensors are [K, N] (objects in sublanes, rays in lanes); the
-selection argmin reduces over the leading axis.
+contiguous [N] arrays — instead of [N,3] arrays with a 3-wide minor dim
+(see tracer/core/vec3p.py), so every elementwise chain is a plain
+per-ray loop that XLA fuses. Candidate tensors are [K, N] (objects
+leading, rays minor); the selection argmin reduces over the leading axis.
 """
 
 from __future__ import annotations
@@ -53,7 +52,7 @@ INF = prim.INF
 DIFFUSE, GLASS, MIRROR = 0, 1, 2
 
 
-def _scene_candidates_p(scene, o, d, a2, time, eps, kernels_on=False):
+def _scene_candidates_p(scene, o, d, a2, time, eps):
     """All candidate ts in (spheres, squares, meshes) order: [S+Q+Nm, N].
     o, d planar [N]; a2 = d.d [N]. Also returns per-mesh tri ids [Nm, N]."""
     t_sph = prim.sphere_ts_planar(o, d, a2, time, scene.sph_center,
@@ -67,14 +66,9 @@ def _scene_candidates_p(scene, o, d, a2, time, eps, kernels_on=False):
                                  scene.quad_valid, eps)
     Nm = scene.mesh_mat.shape[0]
     if Nm > 0:
-        if kernels_on:
-            from tracer.kernels import traverse as ktraverse
-            t_mesh_raw, tri_mesh = ktraverse.mesh_closest_hits(scene, o, d)
-        else:
-            # The BVH walk consumes [N,3] rays (gather-heavy, not
-            # lane-bound).
-            t_mesh_raw, tri_mesh = prim.mesh_closest_hits(
-                vp.pack(o), vp.pack(d), scene, eps)
+        # The per-ray BVH walk consumes [N,3] rays.
+        t_mesh_raw, tri_mesh = prim.mesh_closest_hits(
+            vp.pack(o), vp.pack(d), scene, eps)
         # Scene-level eps cut: a mesh whose *closest* hit is below eps is
         # rejected wholesale (Scene.h:224) — quirk parity.
         t_mesh = jnp.where(t_mesh_raw >= eps, t_mesh_raw, INF).T  # [Nm,N]
@@ -95,8 +89,7 @@ def _scene_candidates(scene, o, d, time, eps):
     return t_all.T, tri.T
 
 
-def _shadow_blocked_p(scene, o, d, time, t_light, keys, eps,
-                      kernels_on=False):
+def _shadow_blocked_p(scene, o, d, time, t_light, keys, eps):
     """Stochastic-transparency shadow test (Scene::computeShadow,
     Scene.h:235-255): blocked iff ANY occluder with eps <= t < t_light
     passes `uniform() > transparency`. One independent draw per occluder
@@ -104,8 +97,7 @@ def _shadow_blocked_p(scene, o, d, time, t_light, keys, eps,
 
     o, d planar [M] shadow rays; t_light, keys: [M]. Returns blocked [M].
     """
-    t_all, _ = _scene_candidates_p(scene, o, d, vp.dot(d, d), time, eps,
-                                   kernels_on)
+    t_all, _ = _scene_candidates_p(scene, o, d, vp.dot(d, d), time, eps)
     mat_ids = jnp.concatenate([scene.sph_mat, scene.quad_mat,
                                scene.mesh_mat])
     transp = scene.mat_transparency[mat_ids]          # [K]
@@ -116,10 +108,9 @@ def _shadow_blocked_p(scene, o, d, time, t_light, keys, eps,
 
 
 def _geo_packs(scene):
-    """Scene-constant packed parameter tables: ONE row gather per hit ray
-    replaces ~30 per-column gathers (row-gather cost is width-bound up to
-    8+ floats — benchmarks/gather_exp2.py). XLA hoists these concats out of
-    the bounce scan. Material ids ride as f32 columns (exact for ids<2^24).
+    """Scene-constant packed parameter tables: ONE row fetch per hit ray
+    replaces ~30 per-column gathers. XLA hoists these concats out of the
+    bounce scan. Material ids ride as f32 columns (exact for ids<2^24).
     """
     sph = jnp.concatenate([
         scene.sph_center, scene.sph_radius[:, None],
@@ -144,21 +135,15 @@ def _geo_packs(scene):
         scene.tex_h[scene.mat_tex],
         scene.nm_off[scene.mat_nm], scene.nm_w[scene.mat_nm],
         scene.nm_h[scene.mat_nm],
-        scene.mat_type, scene.mat_nm,
-        scene.mat_pair_wa, scene.mat_pair_ha, scene.mat_pair_wb,
-        scene.mat_pair_hb, scene.mat_pair_off,
-        scene.mat_pair_tex, scene.mat_pair_nm], axis=1)          # [M, 16] i32
+        scene.mat_type, scene.mat_nm], axis=1)                   # [M, 9] i32
     return sph, quad, matf, mati
 
 
 def _rows(table, idx):
-    """Differentiable small-table row fetch as a one-hot MXU matmul.
-
-    A per-row HBM gather issues at ~7 ns/row on v5e (random-access bound) —
-    ~3 ms per 408K rays REGARDLESS of table size. For K <= a few hundred
-    rows, onehot[N,K] @ table[K,F] is 10-30x faster and exact: one-hot
-    entries are 0/1, a single nonzero per row, and HIGHEST precision keeps
-    true-f32 products. Gradients flow to `table` (onehot^T @ g scatter)."""
+    """Differentiable small-table row fetch as a one-hot matmul,
+    onehot[N,K] @ table[K,F]. Exact: one-hot entries are 0/1 with a single
+    nonzero per row, and HIGHEST precision keeps true-f32 products (no
+    TF32). Gradients flow to `table` (onehot^T @ g)."""
     K = table.shape[0]
     oh = (idx[:, None] == jnp.arange(K, dtype=idx.dtype)[None, :]).astype(
         table.dtype)
@@ -172,66 +157,6 @@ def _rows_i(table_i32, idx):
     return out.astype(jnp.int32)
 
 
-def _mesh_hits_sorted(scene, o, d, active):
-    """BVH packet traversal over a SORTED ray queue (SURVEY §7 "sorted/
-    compacted ray queues"): rays are bucketed by direction octant + a
-    coarse 8^3 position grid over the mesh bounds, so each kernel packet
-    walks a coherent subtree instead of the whole preorder. Measured on
-    backrooms_pool (enclosed, fully-incoherent after bounce 1) the walk
-    dominates the bounce; sorting trades ~2 argsorts + 3 row gathers
-    (~0.8 + 3x0.9 ms at 850x480) for near-primary walk coherence.
-
-    Returns (t_raw [Nm, N], tri_raw [Nm, N]) in the ORIGINAL ray order —
-    selection-only, bit-identical to the unsorted walk (the walk visits a
-    superset of nodes per packet either way; per-lane results depend only
-    on the lane's own ray)."""
-    from tracer.kernels import traverse as ktraverse
-    Nm = scene.mesh_mat.shape[0]
-    roots = jnp.asarray(scene.mesh_root, jnp.int32)
-    lo = jnp.min(scene.bvh_lo[roots], axis=0)
-    hi = jnp.max(scene.bvh_hi[roots], axis=0)
-    inv_ext = 7.999 / jnp.maximum(hi - lo, 1e-6)
-    sg = jax.lax.stop_gradient
-
-    def bucket(c, lo_c, inv_c):
-        q = jnp.clip((sg(c) - lo_c) * inv_c, 0.0, 7.999)
-        return q.astype(jnp.int32)
-
-    octant = ((sg(d[0]) < 0).astype(jnp.int32)
-              + 2 * (sg(d[1]) < 0).astype(jnp.int32)
-              + 4 * (sg(d[2]) < 0).astype(jnp.int32))
-    pos = (bucket(o[0], lo[0], inv_ext[0]) * 64
-           + bucket(o[1], lo[1], inv_ext[1]) * 8
-           + bucket(o[2], lo[2], inv_ext[2]))
-    key = octant * 512 + pos
-    key = jnp.where(active, key, jnp.int32(1 << 20))  # dead lanes last
-    order = jnp.argsort(key)
-    inv_order = jnp.argsort(order)
-
-    # permute rays with ONE wide row gather (planar per-component gathers
-    # hit XLA's slow width-1 path); dead lanes sorted last, so the live
-    # mask of the sorted queue is a prefix predicate — no gather needed
-    rays8 = jnp.stack([sg(o[0]), sg(o[1]), sg(o[2]),
-                       sg(d[0]), sg(d[1]), sg(d[2]),
-                       jnp.zeros_like(o[0]), jnp.zeros_like(o[0])],
-                      axis=1)[order]
-    o_s = (rays8[:, 0], rays8[:, 1], rays8[:, 2])
-    d_s = (rays8[:, 3], rays8[:, 4], rays8[:, 5])
-    n_live = jnp.sum(jnp.where(active, 1, 0))
-    lv_s = jnp.arange(order.shape[0], dtype=jnp.int32) < n_live
-    t_s, tri_s = ktraverse.mesh_closest_hits(scene, o_s, d_s, live=lv_s)
-    # one wide row gather un-permutes both outputs (width < 8 gathers hit
-    # XLA's slow per-element path; tri ids are < 2^24, exact in f32)
-    both = jnp.concatenate([t_s, tri_s.astype(jnp.float32)], axis=1)
-    pad = (-both.shape[1]) % 8
-    if pad:
-        both = jnp.pad(both, ((0, 0), (0, pad)))
-    both = both[inv_order]
-    t_raw = both[:, :Nm].T                                    # [Nm, N]
-    tri_raw = both[:, Nm:2 * Nm].astype(jnp.int32).T
-    return t_raw, tri_raw
-
-
 def _mesh_detail_p(scene, o, d, j, tid):
     """Differentiable mesh-hit detail: barycentric position/normal via the
     SHARED vertex table (so vertex grads scatter-add onto mesh_verts) and
@@ -240,12 +165,10 @@ def _mesh_detail_p(scene, o, d, j, tid):
     produce garbage that must be masked by an is_mesh select.
 
     Layout: ONE per-triangle packed row (3 verts + 3 colors + has_col,
-    padded to 24 f32 = gather-fast width) replaces 18 narrow per-column
-    gathers — those hit XLA's slow per-element path (~6.6 ns/elem), and
-    measured 34 ms/bounce on flamingo at 850x480 vs ~1 ms for the row
-    form. The [T, 24] pack is built from mesh_verts per frame (T-sized
-    gathers, hoisted out of the bounce scan), so vertex gradients still
-    scatter-add onto the SHARED mesh_verts table through the pack's vjp."""
+    padded to 24 f32) replaces 18 narrow per-column gathers. The [T, 24]
+    pack is built from mesh_verts per frame (T-sized gathers, hoisted out
+    of the bounce scan), so vertex gradients still scatter-add onto the
+    SHARED mesh_verts table through the pack's vjp."""
     tid = jnp.clip(tid, 0, scene.tri_va.shape[0] - 1)
     pack = jnp.concatenate([
         scene.mesh_verts[scene.tri_va],
@@ -264,9 +187,8 @@ def _mesh_detail_p(scene, o, d, j, tid):
     return p_m, n_m, col_m, row[:, 18]
 
 
-def _gather_hit_p(scene, o, d, a2, time, j, tid, eps,
-                  kernels_on=False, packed_on=None, k1=None,
-                  fetch_tex=True, tex_saved=None):
+def _gather_hit_p(scene, o, d, a2, time, j, tid, eps, fetch_tex=True,
+                  tex_saved=None):
     """Recompute the selected hit differentiably and fetch shading inputs.
 
     j: [N] winning candidate index into (spheres | squares | meshes);
@@ -274,24 +196,14 @@ def _gather_hit_p(scene, o, d, a2, time, j, tid, eps,
     Returns dict of per-ray planar fields. Discrete selection (j, tri ids)
     is non-differentiable by construction; gradients flow through the
     analytic re-evaluation of the winning primitive (SURVEY.md §7).
-    `packed_on` (default: kernels_on) routes atlas fetches through the
-    packed-u32 / pair-packed fast paths (bit-identical values for PRISTINE
-    u8 atlases; texel grads still reach tex_data/nm_data via the fetches'
-    custom VJPs). Pass False when the atlases are live optimization
-    parameters off the u8 grid (cfg.packed_atlas). `k1`: the fused
-    first-hit kernel's detail record (kernels/intersect.py) — when given,
-    the sphere/quad one-hot refetch + re-derivation are skipped (forward
-    fast path; the differentiable replay passes k1=None). `fetch_tex=False`
-    (static) skips the texture AND normal-map atlas gathers entirely;
-    callers may only pass it when `diffuse` and the mapped normal are dead
-    downstream (last bounce, no lights) and no emissive material is
-    TEX_IMAGE (scene.emissive_tex_image False): emission then provably
-    never selects the fetched texel, so the live outputs are
-    bit-identical."""
+    `fetch_tex=False` (static) skips the texture AND normal-map atlas
+    gathers entirely; callers may only pass it when `diffuse` and the
+    mapped normal are dead downstream (last bounce, no lights) and no
+    emissive material is TEX_IMAGE (scene.emissive_tex_image False):
+    emission then provably never selects the fetched texel, so the live
+    outputs are bit-identical."""
     from tracer.render import shading
 
-    if packed_on is None:
-        packed_on = kernels_on
     N = j.shape[0]
     S = scene.sph_center.shape[0]
     Q = scene.quad_v0.shape[0]
@@ -301,37 +213,28 @@ def _gather_hit_p(scene, o, d, a2, time, j, tid, eps,
 
     sph_pack, quad_pack, matf, mati = _geo_packs(scene)
 
-    if k1 is not None:
-        p_sq = k1["p"]
-        n_sq = k1["n"]
-        u_q, v_q = k1["u"], k1["v"]
-        tan_q, bitan_q = k1["tan"], k1["bitan"]
-        mid_sq = k1["mid"]
-        theta = jnp.arccos(jnp.clip(-n_sq[1], -1.0 + 1e-7, 1.0 - 1e-7))
-        phi = jnp.arctan2(-n_sq[2], n_sq[0] + 1e-20) + jnp.pi
-    else:
-        # --- sphere branch -----------------------------------------------
-        js = jnp.clip(j, 0, S - 1)
-        srow = _rows(sph_pack, js)                               # [N, 8]
-        mid_s = srow[:, 7].astype(jnp.int32)
-        _, p_s, n_s, theta, phi = prim.sphere_hit_detail_planar(
-            o, d, a2, time, (srow[:, 0], srow[:, 1], srow[:, 2]),
-            srow[:, 3], (srow[:, 4], srow[:, 5], srow[:, 6]), eps)
+    # --- sphere branch ---------------------------------------------------
+    js = jnp.clip(j, 0, S - 1)
+    srow = _rows(sph_pack, js)                                   # [N, 8]
+    mid_s = srow[:, 7].astype(jnp.int32)
+    _, p_s, n_s, theta, phi = prim.sphere_hit_detail_planar(
+        o, d, a2, time, (srow[:, 0], srow[:, 1], srow[:, 2]),
+        srow[:, 3], (srow[:, 4], srow[:, 5], srow[:, 6]), eps)
 
-        # --- quad branch -------------------------------------------------
-        jq = jnp.clip(j - S, 0, Q - 1)
-        qrow = _rows(quad_pack, jq)                              # [N, 19]
-        mid_q = qrow[:, 18].astype(jnp.int32)
-        _, p_q, n_q, u_q, v_q = prim.quad_hit_detail_planar(
-            o, d, time, (qrow[:, 0], qrow[:, 1], qrow[:, 2]),
-            (qrow[:, 3], qrow[:, 4], qrow[:, 5]),
-            (qrow[:, 6], qrow[:, 7], qrow[:, 8]),
-            (qrow[:, 9], qrow[:, 10], qrow[:, 11]))
-        p_sq = vp.where(is_quad, p_q, p_s)
-        n_sq = vp.where(is_quad, n_q, n_s)
-        mid_sq = jnp.where(is_sph, mid_s, mid_q)
-        tan_q = (qrow[:, 12], qrow[:, 13], qrow[:, 14])
-        bitan_q = (qrow[:, 15], qrow[:, 16], qrow[:, 17])
+    # --- quad branch -----------------------------------------------------
+    jq = jnp.clip(j - S, 0, Q - 1)
+    qrow = _rows(quad_pack, jq)                                  # [N, 19]
+    mid_q = qrow[:, 18].astype(jnp.int32)
+    _, p_q, n_q, u_q, v_q = prim.quad_hit_detail_planar(
+        o, d, time, (qrow[:, 0], qrow[:, 1], qrow[:, 2]),
+        (qrow[:, 3], qrow[:, 4], qrow[:, 5]),
+        (qrow[:, 6], qrow[:, 7], qrow[:, 8]),
+        (qrow[:, 9], qrow[:, 10], qrow[:, 11]))
+    p_sq = vp.where(is_quad, p_q, p_s)
+    n_sq = vp.where(is_quad, n_q, n_s)
+    mid_sq = jnp.where(is_sph, mid_s, mid_q)
+    tan_q = (qrow[:, 12], qrow[:, 13], qrow[:, 14])
+    bitan_q = (qrow[:, 15], qrow[:, 16], qrow[:, 17])
 
     # --- mesh branch (shared-vertex gathers: grads scatter-add onto
     # mesh_verts — one gradient per shared vertex, reference Mesh.h:111-124)
@@ -363,17 +266,9 @@ def _gather_hit_p(scene, o, d, a2, time, j, tid, eps,
     textype = mri[:, 0]
 
     # ONE shared atlas fetch serves both diffuse texturing and emission
-    # (Material.cpp:63-92 / 13-24 use the same (slot, u, v) texel). Fast
-    # paths by preference: pair_pack (ONE gather for texture AND normal
-    # map — scene/device.py pair_mode), else packed_fetch2 (one fused
-    # 2N-row gather), else the exact [P,3] row gathers.
+    # (Material.cpp:63-92 / 13-24 use the same (slot, u, v) texel).
     has_tex = fetch_tex and scene.tex_data.shape[0] > 1
     has_nm = fetch_tex and scene.nm_data.shape[0] > 1
-    packs_ok = (scene.tex_pack.shape[0] > 1 or not has_tex) and \
-        (scene.nm_pack.shape[0] > 1 or not has_nm)
-    use_pair = (packed_on and scene.pair_mode
-                and scene.pair_pack.shape[0] > 1 and (has_tex or has_nm))
-    fused = packed_on and packs_ok and has_tex and has_nm and not use_pair
     raw_nm = npresent = None
     rec_idx_t = rec_idx_n = None
     if tex_saved is not None:
@@ -381,16 +276,13 @@ def _gather_hit_p(scene, o, d, a2, time, j, tid, eps,
         # re-enter as DIFFERENTIABLE replay inputs (split out by
         # _rec_split_tex), and their cotangents are folded onto the
         # atlases by ONE top-level scatter per atlas in _trace_cv_bwd.
-        # The atlas gather — the measured per-bounce hot spot — never
-        # runs in the differentiable replay, and neither do the texel
-        # index staircases (idx has zero gradient through trunc anyway).
+        # The atlas gather never runs in the differentiable replay, and
+        # neither do the texel index staircases (idx has zero gradient
+        # through trunc anyway).
         simg, srnm, sidx_t, sidx_n, spres, snpres = tex_saved
-        # fused-path records carry the present masks as f32 (bool arrays
-        # scan-stack with a costly relayout); normalize to bool here
-        if spres.dtype != jnp.bool_:
-            spres = spres > 0.5
-        if snpres.dtype != jnp.bool_:
-            snpres = snpres > 0.5
+        # records carry the present masks as f32 rows; normalize to bool
+        spres = spres > 0.5
+        snpres = snpres > 0.5
         if has_tex or has_nm:
             img = simg
             present = spres
@@ -400,59 +292,20 @@ def _gather_hit_p(scene, o, d, a2, time, j, tid, eps,
         if has_nm:
             raw_nm = srnm
             npresent = snpres
-    elif use_pair:
-        # pair-region index: xa/ya from the primary dims; for product
-        # regions (mismatched tex/nm dims) add the staircase of the second
-        # image — the sum uniquely identifies the texel pair
-        # (scene/device.py _axis_pairs).
-        xa, ya = shading._texel_xy(mri[:, 9], mri[:, 10], u_tex, v_tex,
-                                   sx, sy)
-        xb, yb = shading._texel_xy(mri[:, 11], mri[:, 12], u_tex, v_tex,
-                                   sx, sy)
-        wc = mri[:, 9] + jnp.maximum(mri[:, 11] - 1, 0)
-        rel = (ya + yb) * wc + xa + xb
-        row_idx = mri[:, 13] + rel // shading.PACK_BLOCK
-        sub = rel % shading.PACK_BLOCK
-        # exact atlas indices for the texel-gradient scatter (custom VJP):
-        # tex uses its own dims (cols 2,3), nm its own (cols 5,6)
-        xt, yt = shading._texel_xy(mri[:, 2], mri[:, 3], u_tex, v_tex,
-                                   sx, sy)
-        xn, yn = shading._texel_xy(mri[:, 5], mri[:, 6], u_tex, v_tex,
-                                   sx, sy)
-        idx_t = jnp.clip(mri[:, 1] + yt * mri[:, 2] + xt, 0,
-                         scene.tex_data.shape[0] - 1)
-        idx_n = jnp.clip(mri[:, 4] + yn * mri[:, 5] + xn, 0,
-                         scene.nm_data.shape[0] - 1)
-        ptex = mri[:, 14] > 0
-        pnm = mri[:, 15] > 0
-        img, raw_nm = shading.paired_fetch(
-            scene.tex_data, scene.nm_data, scene.pair_pack, row_idx, sub,
-            idx_t, idx_n, ptex, pnm)
-        present = ptex
-        npresent = pnm
-        rec_idx_t, rec_idx_n = idx_t, idx_n
-    elif has_nm:
-        nm_idx, npresent = shading._texel_index(
-            scene.nm_data.shape[0], mri[:, 4], mri[:, 5], mri[:, 6],
-            u_tex, v_tex, sx, sy)
-        rec_idx_n = nm_idx
-    if tex_saved is None and not use_pair and has_tex:
-        tex_idx, present = shading._texel_index(
-            scene.tex_data.shape[0], mri[:, 1], mri[:, 2], mri[:, 3],
-            u_tex, v_tex, sx, sy)
-        rec_idx_t = tex_idx
-        if fused:
-            img, raw_nm = shading.packed_fetch2(
-                scene.tex_data, scene.nm_data, scene.tex_pack,
-                scene.nm_pack, tex_idx, nm_idx)
-        elif packed_on and scene.tex_pack.shape[0] > 1:
-            img = shading.packed_fetch(scene.tex_data, scene.tex_pack,
-                                       tex_idx)
+    else:
+        if has_tex:
+            rec_idx_t, present = shading._texel_index(
+                scene.tex_data.shape[0], mri[:, 1], mri[:, 2], mri[:, 3],
+                u_tex, v_tex, sx, sy)
+            img = vp.splat(scene.tex_data[rec_idx_t])
         else:
-            img = vp.splat(scene.tex_data[tex_idx])
-    elif tex_saved is None and not use_pair:
-        img = vp.full_like(o, 0.0)
-        present = jnp.zeros(N, bool)
+            img = vp.full_like(o, 0.0)
+            present = jnp.zeros(N, bool)
+        if has_nm:
+            rec_idx_n, npresent = shading._texel_index(
+                scene.nm_data.shape[0], mri[:, 4], mri[:, 5], mri[:, 6],
+                u_tex, v_tex, sx, sy)
+            raw_nm = vp.splat(scene.nm_data[rec_idx_n])
     from tracer.core.mathutils import trunc_mod2
     same = trunc_mod2(u_tex * sx) == trunc_mod2(v_tex * sy)
     checker = vp.where(same, (mrf[:, 2], mrf[:, 3], mrf[:, 4]),
@@ -468,19 +321,10 @@ def _gather_hit_p(scene, o, d, a2, time, j, tid, eps,
                        textured)
 
     # normal mapping — squares only (Scene.h:284, sphere call commented out)
-    raw_for_rec = None
     if has_nm:
-        if raw_nm is not None:
-            raw = raw_nm
-        elif packed_on and scene.nm_pack.shape[0] > 1:
-            raw = shading.packed_fetch(scene.nm_data, scene.nm_pack, nm_idx)
-        else:
-            raw = vp.splat(scene.nm_data[nm_idx])
-        raw_for_rec = raw
-        nm = tuple(2.0 * c - 1.0 for c in raw)
-        tan, bitan = tan_q, bitan_q
+        nm = tuple(2.0 * c - 1.0 for c in raw_nm)
         n2 = vp.normalize(tuple(
-            nm[0] * tan[a] + nm[1] * bitan[a] + nm[2] * n[a]
+            nm[0] * tan_q[a] + nm[1] * bitan_q[a] + nm[2] * n[a]
             for a in range(3)))
         use = npresent & (mri[:, 8] > 0)
         n_mapped = vp.where(use, n2, n)
@@ -502,7 +346,7 @@ def _gather_hit_p(scene, o, d, a2, time, j, tid, eps,
         zi = jnp.zeros(N, jnp.int32)
         zb = jnp.zeros(N, bool)
         z3 = vp.full_like(o, 0.0)
-        tex_rec = (img, raw_for_rec if raw_for_rec is not None else z3,
+        tex_rec = (img, raw_nm if raw_nm is not None else z3,
                    rec_idx_t if rec_idx_t is not None else zi,
                    rec_idx_n if rec_idx_n is not None else zi,
                    present,
@@ -513,86 +357,11 @@ def _gather_hit_p(scene, o, d, a2, time, j, tid, eps,
                 mtype=mri[:, 7], tex_rec=tex_rec)
 
 
-def _shadow_factors_all(scene, cfg: RenderConfig, p, time, keys, eps,
-                        live=None):
-    """Per-light soft-shadow factors [L x [N]] — fused Pallas kernel when
-    enabled (mesh occluders walk the BVH in-kernel), jnp megabatch spec
-    otherwise. Discrete Bernoulli visibility: zero gradient by
-    construction; `live` lets the kernel skip fully-dead tiles."""
-    L = scene.light_pos.shape[0]
-    if L == 0:
-        return []
-    from tracer.kernels import common as kcommon
-    if kcommon.use_kernels(cfg):
-        from tracer.kernels import shadow as kshadow
-        if scene.mesh_mat.shape[0] > 0 and cfg.ray_sort != "off":
-            return _shadow_factors_sorted(scene, cfg, p, time, keys, eps,
-                                          live)
-        return kshadow.shadow_factors(scene, cfg, p, time, keys, eps,
-                                      live=live)
+def _shadow_factors_all(scene, cfg: RenderConfig, p, time, keys, eps):
+    """Per-light soft-shadow factors [L x [N]]. Discrete Bernoulli
+    visibility: zero gradient by construction."""
     return [_shadow_factor_jnp(scene, cfg, p, time, keys, eps, i)
-            for i in range(L)]
-
-
-def _shadow_factors_sorted(scene, cfg: RenderConfig, p, time, keys, eps,
-                           live):
-    """Position-sorted shadow dispatch for mesh scenes.
-
-    The shadow walk is LEAF-visit bound: a (32x128)-lane packet of
-    scattered hit points shooting at one light covers the whole scene, so
-    its union cone visits most of the BVH every bounce. Bucketing the hit
-    points on a 16^3 grid (dead lanes last) gives each packet a tight
-    origin cluster -> narrow cone toward the light -> real pruning, and
-    groups dead lanes into whole skippable tiles. Selection is per-lane,
-    so sort + unsort is bit-identical to the unsorted dispatch (same
-    argsort trick as _mesh_hits_sorted)."""
-    from tracer.kernels import shadow as kshadow
-    sg = jax.lax.stop_gradient
-    N = p[0].shape[0]
-    roots = jnp.asarray(scene.mesh_root, jnp.int32)
-    lo = jnp.min(scene.bvh_lo[roots], axis=0)
-    hi = jnp.max(scene.bvh_hi[roots], axis=0)
-    inv_ext = 15.999 / jnp.maximum(hi - lo, 1e-6)
-
-    def bucket(c, lo_c, inv_c):
-        q = jnp.clip((sg(c) - lo_c) * inv_c, 0.0, 15.999)
-        return q.astype(jnp.int32)
-
-    key = (bucket(p[0], lo[0], inv_ext[0]) * 256
-           + bucket(p[1], lo[1], inv_ext[1]) * 16
-           + bucket(p[2], lo[2], inv_ext[2]))
-    lv = live if live is not None else jnp.ones(N, bool)
-    key = jnp.where(lv, key, jnp.int32(1 << 20))
-    order = jnp.argsort(key)
-    inv_order = jnp.argsort(order)
-    zero = jnp.zeros_like(time)
-    # one wide row gather for all per-lane inputs (narrow gathers hit
-    # XLA's slow path); the PRNG keys ride as two exact 16-bit halves —
-    # a raw f32 bitcast of key bits can be a NaN pattern, which trips
-    # JAX_DEBUG_NANS in CI even though the gather never computes on it
-    ki = jax.lax.bitcast_convert_type(keys, jnp.uint32)
-    k_lo = (ki & jnp.uint32(0xFFFF)).astype(jnp.float32)
-    k_hi = jax.lax.shift_right_logical(
-        ki, jnp.uint32(16)).astype(jnp.float32)
-    pack = jnp.stack(
-        [sg(p[0]), sg(p[1]), sg(p[2]), sg(time), k_lo, k_hi,
-         zero, zero], axis=1)[order]
-    n_live = jnp.sum(jnp.where(lv, 1, 0))
-    lv_s = jnp.arange(N, dtype=jnp.int32) < n_live
-    p_s = (pack[:, 0], pack[:, 1], pack[:, 2])
-    keys_u = (pack[:, 4].astype(jnp.uint32)
-              | jax.lax.shift_left(pack[:, 5].astype(jnp.uint32),
-                                   jnp.uint32(16)))
-    keys_s = jax.lax.bitcast_convert_type(keys_u, keys.dtype)
-    outs = kshadow.shadow_factors(scene, cfg, p_s, pack[:, 3], keys_s,
-                                  eps, live=lv_s)
-    L = len(outs)
-    ostk = jnp.stack(outs, axis=1)
-    pad = (-L) % 8
-    if pad:
-        ostk = jnp.pad(ostk, ((0, 0), (0, pad)))
-    ostk = ostk[inv_order]
-    return [ostk[:, i] for i in range(L)]
+            for i in range(scene.light_pos.shape[0])]
 
 
 def _direct_lighting_p(scene, cfg: RenderConfig, p, n, transp, diffuse,
@@ -622,8 +391,7 @@ def _direct_lighting_p(scene, cfg: RenderConfig, p, n, transp, diffuse,
 
 def _shadow_factor_jnp(scene, cfg: RenderConfig, p, time, keys, eps, i):
     """Soft-shadow factor for light i: K jittered samples toward the light
-    sphere (Scene.h:319-334), stacked into a [K*N] planar megabatch. The
-    jnp reference implementation of the Pallas shadow kernel."""
+    sphere (Scene.h:319-334), stacked into a [K*N] planar megabatch."""
     N = p[0].shape[0]
     K = cfg.shadow_rays
     ref = cfg.compat == "reference"
@@ -650,10 +418,8 @@ def _shadow_factor_jnp(scene, cfg: RenderConfig, p, time, keys, eps, i):
                   .reshape(K * N) for a in range(3))
     so = vp.axpy(cfg.epsilon, sdir, p_rep)
     t_rep = jnp.broadcast_to(time[None, :], (K, N)).reshape(K * N)
-    from tracer.kernels import common as kcommon
     blocked = _shadow_blocked_p(scene, so, sdir, t_rep, t_light, bkeys,
-                                eps, kcommon.use_kernels(cfg)
-                                ).reshape(K, N)
+                                eps).reshape(K, N)
     return 1.0 - jnp.mean(blocked, axis=0)
 
 
@@ -744,13 +510,10 @@ def _bounce_core(scene, cfg: RenderConfig, keys, state, b, saved=None,
     gathers are statically skipped too (see _gather_hit_p fetch_tex).
     """
     from tracer.render import shading
-    from tracer.kernels import common as kcommon
 
     eps = cfg.epsilon
     B = cfg.max_bounces
     ref = cfg.compat == "reference"
-    kernels_on = kcommon.use_kernels(cfg)
-    packed_on = kernels_on and cfg.packed_atlas != "off"
     L = scene.light_pos.shape[0]
 
     o, d, time = state["o"], state["d"], state["time"]
@@ -764,198 +527,19 @@ def _bounce_core(scene, cfg: RenderConfig, keys, state, b, saved=None,
     a2 = vp.dot(d, d)
     zero = o[0] * 0.0
 
-    # ---- fully-fused bounce: first-hit kernel -> [pair gather] -> shade
-    # kernel. The only per-bounce XLA work is the pair-atlas row gather
-    # (hard per-row floor), its near-free transpose, the one-hot MXU
-    # material-row fetch, and (when present) mesh detail / image skybox /
-    # shadow-kernel glue. Texel indices are computed inside the first-hit
-    # kernel, which requires quad-only texturing (scene.sphere_uv_needed
-    # routes textured-sphere scenes to the general path below).
-    no_atlas = (scene.tex_data.shape[0] <= 1
-                and scene.nm_data.shape[0] <= 1)
-    fused = (saved is None and kernels_on
-             and ((scene.pair_mode and packed_on) or no_atlas))
-    if fused:
-        from tracer.kernels import intersect as kintersect
-        from tracer.kernels import shade as kshade
-        Nm = scene.mesh_mat.shape[0]
-        fetch_tex = not (last and L == 0 and not scene.emissive_tex_image)
-        use_pair = (fetch_tex and not no_atlas
-                    and scene.pair_pack.shape[0] > 1)
-        with jax.named_scope("traverse"):
-            if Nm > 0:
-                # sorting costs ~2 argsorts + 3 row gathers (~4.5 ms at
-                # 850x480); for SMALL trees the whole unsorted walk is
-                # cheaper than that (raccoon: 3.2 ms unsorted vs 8.0
-                # sorted), so only deep trees take the sorted queue
-                if (cfg.ray_sort != "off"
-                        and scene.bvh_lo.shape[0] >= 4096):
-                    t_raw, tri_raw = _mesh_hits_sorted(scene, o, d,
-                                                       active)
-                else:
-                    from tracer.kernels import traverse as ktraverse
-                    t_raw, tri_raw = ktraverse.mesh_closest_hits(
-                        scene, o, d, live=active)
-                    t_raw, tri_raw = t_raw.T, tri_raw.T        # [Nm, N]
-            else:
-                N0 = o[0].shape[0]
-                t_raw = jnp.full((0, N0), INF)
-                tri_raw = jnp.full((0, N0), -1, jnp.int32)
-            sph_uv = scene.sphere_uv_needed
-            k1 = kintersect.first_hits(
-                scene, o, d, time, t_raw, tri_raw, live=active, eps=eps,
-                tex_out=(0 if (not use_pair or sph_uv)
-                         else (2 if with_rec else 1)))
-        with jax.named_scope("shade_glue"):
-            mat_rows = _rows(kshade.shade_mat_table(scene), k1["mid"])
-            if use_pair and sph_uv:
-                # textured-sphere scenes: sphere u/v need theta/phi
-                # (arccos/atan2 — no Mosaic lowering), so the texel
-                # indices are derived here in XLA with the SAME
-                # expressions as the general path (_gather_hit_p
-                # use_pair branch) and spliced into k1 for the gather,
-                # the shade kernel and the record.
-                n_sq = k1["n"]
-                is_sph = (k1["j"] >= 0) & (jnp.maximum(k1["j"], 0)
-                                           < scene.sph_center.shape[0])
-                theta = jnp.arccos(jnp.clip(-n_sq[1], -1.0 + 1e-7,
-                                            1.0 - 1e-7))
-                phi = jnp.arctan2(-n_sq[2], n_sq[0] + 1e-20) + jnp.pi
-                u_tex = jnp.where(is_sph, phi / (2.0 * jnp.pi), k1["u"])
-                v_tex = jnp.where(is_sph, theta / jnp.pi, k1["v"])
-                mri = _rows_i(_geo_packs(scene)[3], k1["mid"])
-                sx = mat_rows[:, 18]
-                sy = mat_rows[:, 19]
-                xa, ya = shading._texel_xy(mri[:, 9], mri[:, 10],
-                                           u_tex, v_tex, sx, sy)
-                xb, yb = shading._texel_xy(mri[:, 11], mri[:, 12],
-                                           u_tex, v_tex, sx, sy)
-                wc = mri[:, 9] + jnp.maximum(mri[:, 11] - 1, 0)
-                rel = (ya + yb) * wc + xa + xb
-                k1 = dict(k1, u=u_tex, v=v_tex,
-                          row=mri[:, 13] + rel // shading.PACK_BLOCK,
-                          sub=rel % shading.PACK_BLOCK,
-                          ptex=jnp.where(mri[:, 14] > 0, 1.0, 0.0),
-                          pnm=jnp.where(mri[:, 15] > 0, 1.0, 0.0))
-                if with_rec:
-                    xt, yt = shading._texel_xy(mri[:, 2], mri[:, 3],
-                                               u_tex, v_tex, sx, sy)
-                    xn, yn = shading._texel_xy(mri[:, 5], mri[:, 6],
-                                               u_tex, v_tex, sx, sy)
-                    k1 = dict(
-                        k1,
-                        idx_t=jnp.clip(mri[:, 1] + yt * mri[:, 2] + xt,
-                                       0, scene.tex_data.shape[0] - 1),
-                        idx_n=jnp.clip(mri[:, 4] + yn * mri[:, 5] + xn,
-                                       0, scene.nm_data.shape[0] - 1))
-            mesh_detail = None
-            p_hit = k1["p"]
-            if Nm > 0:
-                is_mesh = k1["j"] >= (scene.sph_center.shape[0]
-                                      + scene.quad_v0.shape[0])
-                mesh_detail = _mesh_detail_p(scene, o, d,
-                                             jnp.maximum(k1["j"], 0),
-                                             k1["tid"])
-                p_hit = vp.where(is_mesh, mesh_detail[0], p_hit)
-            sky = None
-            if scene.has_sky_image:
-                sky = shading.skybox_color_p(
-                    scene, d, jnp.broadcast_to(n_rem, zero.shape), ref,
-                    packed=packed_on)
-            rows = None
-            if use_pair:
-                # ONE pair-row gather (the per-bounce hard floor) + the
-                # one-hot sub-texel select in XLA; the selected words
-                # enter the shade kernel as two planar i32 inputs.
-                prows = scene.pair_pack[k1["row"]]           # [N, 32]
-                oh = (k1["sub"][:, None] == jnp.arange(
-                    shading.PACK_BLOCK, dtype=jnp.int32)[None]
-                    ).astype(jnp.int32)
-                vt = jnp.sum(prows[:, :shading.PACK_BLOCK] * oh, axis=1)
-                vn = jnp.sum(prows[:, shading.PACK_BLOCK:] * oh, axis=1)
-                rows = (vt, vn, k1["ptex"], k1["pnm"])
-        live = active & (k1["j"] >= 0)
-        shadows = None
-        if L > 0:
-            with jax.named_scope("direct_light"):
-                shadows = _shadow_factors_all(scene, cfg, p_hit, time,
-                                              bkeys, eps, live=live)
-        with jax.named_scope("shade_kernel"):
-            out = kshade.shade_scatter(
-                scene, cfg, state, bkeys, k1, mat_rows,
-                jnp.asarray(n_rem), mesh_detail=mesh_detail, sky=sky,
-                shadows=shadows, rows=rows, last=last,
-                rec_out=with_rec)
-        ktex = None
-        if with_rec and use_pair:
-            out, ktex = out
-        if last:
-            state = dict(state, acc=out)
-        else:
-            state = out
-        rec = None
-        if with_rec:
-            # per-bounce record for the replay backward: texels decoded
-            # inside the shade kernel (bit-identical to its in-VMEM use)
-            # plus the first-hit kernel's true atlas indices for the
-            # top-level cotangent fold. PACKED into two stacked arrays:
-            # every separate scan Y-output measured ~0.1 ms/bounce of
-            # per-output overhead (12 outputs cost 3.1 ms/sample).
-            N0 = zero.shape[0]
-            zi = jnp.zeros(N0, jnp.int32)
-            if use_pair:
-                (imx, imy, imz), (rnx, rny, rnz) = ktex
-                reci = jnp.stack([k1["j"], k1["tid"], k1["idx_t"],
-                                  k1["idx_n"]])
-                recf = jnp.stack([imx, imy, imz, rnx, rny, rnz,
-                                  k1["ptex"], k1["pnm"]])
-            else:
-                reci = jnp.stack([k1["j"], k1["tid"], zi, zi])
-                recf = jnp.zeros((8,) + zero.shape, jnp.float32)
-            shadows_y = (jnp.stack(shadows) if L > 0
-                         else jnp.zeros((0,) + zero.shape, jnp.float32))
-            rec = (reci, recf, shadows_y)
-        return state, occupancy, rec
-
-    k1 = None
     if saved is None:
-        if kernels_on:
-            # fused path: per-mesh packet traversal then the fused
-            # first-hit kernel (candidates + argmin + winner detail in
-            # VMEM — kernels/intersect.py)
-            from tracer.kernels import intersect as kintersect
-            Nm = scene.mesh_mat.shape[0]
-            with jax.named_scope("traverse"):
-                if Nm > 0:
-                    from tracer.kernels import traverse as ktraverse
-                    t_raw, tri_raw = ktraverse.mesh_closest_hits(
-                        scene, o, d, live=active)
-                    t_raw, tri_raw = t_raw.T, tri_raw.T        # [Nm, N]
-                else:
-                    N0 = o[0].shape[0]
-                    t_raw = jnp.full((0, N0), INF)
-                    tri_raw = jnp.full((0, N0), -1, jnp.int32)
-                k1 = kintersect.first_hits(scene, o, d, time, t_raw,
-                                           tri_raw, live=active, eps=eps)
-            j_enc = k1["j"]
-            miss = j_enc < 0
-            j = jnp.maximum(j_enc, 0)
-            tid = k1["tid"]
+        with jax.named_scope("traverse"):
+            t_all, tri_mesh = _scene_candidates_p(scene, o, d, a2, time, eps)
+        j = jnp.argmin(t_all, axis=0)
+        tmin = jnp.min(t_all, axis=0)
+        miss = tmin >= INF * 0.5
+        S = scene.sph_center.shape[0]
+        Q = scene.quad_v0.shape[0]
+        if scene.mesh_mat.shape[0] > 0:
+            jm = jnp.clip(j - S - Q, 0, scene.mesh_mat.shape[0] - 1)
+            tid = jnp.take_along_axis(tri_mesh, jm[None, :], axis=0)[0]
         else:
-            with jax.named_scope("traverse"):
-                t_all, tri_mesh = _scene_candidates_p(scene, o, d, a2,
-                                                      time, eps,
-                                                      kernels_on)
-            j = jnp.argmin(t_all, axis=0)
-            tmin = jnp.min(t_all, axis=0)
-            miss = tmin >= INF * 0.5
-            S = scene.sph_center.shape[0]
-            Q = scene.quad_v0.shape[0]
-            if scene.mesh_mat.shape[0] > 0:
-                jm = jnp.clip(j - S - Q, 0, scene.mesh_mat.shape[0] - 1)
-                tid = jnp.take_along_axis(tri_mesh, jm[None, :], axis=0)[0]
-            else:
-                tid = jnp.zeros_like(j)
+            tid = jnp.zeros_like(j)
     else:
         reci_s, recf_s, shadows_saved = saved
         j_enc, tid = reci_s[0], reci_s[1]
@@ -969,8 +553,7 @@ def _bounce_core(scene, cfg: RenderConfig, keys, state, b, saved=None,
     # weight) so a NaN/Inf on an inactive lane can never poison acc.
     with jax.named_scope("sky"):
         sky = shading.skybox_color_p(
-            scene, d, jnp.broadcast_to(n_rem, zero.shape), ref,
-            packed=packed_on)
+            scene, d, jnp.broadcast_to(n_rem, zero.shape), ref)
     acc = tuple(acc[a] + jnp.where(active & miss,
                                    throughput[a] * sky[a], 0.0)
                 for a in range(3))
@@ -978,7 +561,6 @@ def _bounce_core(scene, cfg: RenderConfig, keys, state, b, saved=None,
     fetch_tex = not (last and L == 0 and not scene.emissive_tex_image)
     with jax.named_scope("shade"):
         hit = _gather_hit_p(scene, o, d, a2, time, j, tid, eps,
-                            kernels_on, packed_on, k1=k1,
                             fetch_tex=fetch_tex,
                             tex_saved=None if saved is None else tex_saved)
     live = active & ~miss
@@ -986,7 +568,7 @@ def _bounce_core(scene, cfg: RenderConfig, keys, state, b, saved=None,
     with jax.named_scope("direct_light"):
         if saved is None:
             shadows = _shadow_factors_all(scene, cfg, hit["p"], time,
-                                          bkeys, eps, live=live)
+                                          bkeys, eps)
         else:
             shadows = [shadows_saved[i] for i in range(L)]
         direct = _direct_lighting_p(scene, cfg, hit["p"], hit["n"],
@@ -1034,9 +616,8 @@ def _trace_scan(scene, cfg: RenderConfig, o, d, time, keys,
 
     Rematerialize each bounce in the backward pass: the default scan AD
     saves dozens of [N]-sized residuals per bounce and runs an unfused
-    bwd body (~7.8 ms/bounce measured vs ~1 ms fwd -- benchmarks/
-    profile_bwd2.py); recomputing the forward body instead makes fwd+bwd
-    faster and O(carry) memory.
+    bwd body; recomputing the forward body instead keeps the backward
+    fused and its memory O(carry).
 
     The final bounce is unrolled out of the scan: its scatter/state
     updates (and, when statically dead, its texture gathers) are then
@@ -1103,12 +684,10 @@ def _trace_replay(scene, cfg: RenderConfig, o, d, time, keys, rec):
     hit's analytic re-derivation and the shading chain. This is the
     function whose VJP is the renderer's backward.
 
-    Remat per bounce (like _trace_scan): measured on-chip, the plain
-    scan-AD backward of even this residual-sized body lowers to an
-    unfused op soup several times the forward's cost, while re-running
-    the (gather-free) replay body forward inside the backward keeps the
-    bwd fused — remat is the faster option here, not just the smaller
-    one."""
+    Remat per bounce (like _trace_scan): the plain scan-AD backward of
+    even this residual-sized body lowers to unfused operations, while
+    re-running the (gather-free) replay body forward inside the backward
+    keeps the bwd fused."""
     B = cfg.max_bounces
     rec_scan, rec_last = rec
 
@@ -1139,9 +718,8 @@ def _trace_cv_fwd(scene, cfg, o, d, time, keys):
         return out, (scene, o, d, time, keys, rec, states)
     out, rec = _trace_record(scene, cfg, o, d, time, keys)
     # Hard boundary between the record forward and the replay backward:
-    # letting XLA fuse across it measured 45 ms vs 25 ms for the composed
-    # fwd+bwd on Cornell (the scheduler interleaves the two scans into a
-    # pessimized soup). The barrier forces the residuals to materialize.
+    # the barrier forces the residuals to materialize, so the scheduler
+    # cannot interleave the two scans.
     rec = jax.lax.optimization_barrier(rec)
     return out, (scene, o, d, time, keys, rec, None)
 
@@ -1162,6 +740,20 @@ def _rec_join_tex(skel, texvals):
                  for (reci, sh), recf in zip(skel, texvals))
 
 
+def fold_texel_updates(data_g, idxs, gs):
+    """Fold per-bounce texel-cotangent updates onto a [P, 3] atlas grad.
+
+    idxs: list of i32 index arrays (any shape); gs: matching list of planar
+    (gx, gy, gz) cotangents. The three channels are interleaved into ONE
+    flat scalar scatter-add instead of three row scatters."""
+    idx = jnp.concatenate([ix.reshape(-1) for ix in idxs])
+    i3 = jnp.concatenate([idx * 3, idx * 3 + 1, idx * 3 + 2])
+    v3 = jnp.concatenate(
+        [jnp.concatenate([gg[a].reshape(-1) for gg in gs])
+         for a in range(3)])
+    return data_g.reshape(-1).at[i3].add(v3).reshape(data_g.shape)
+
+
 def _trace_cv_bwd(cfg, res, g):
     """Backward = vjp of the replay. The recorded texel values enter as
     differentiable replay arguments (not through a per-bounce scatter-add
@@ -1178,30 +770,18 @@ def _trace_cv_bwd(cfg, res, g):
     scene, o, d, time, keys, rec, states = res
     texvals0, skel = _rec_split_tex(rec)
 
-    if states is not None:
-        from tracer.render import replay_bwd
-        gscene, go, gd, gtime, gtex = replay_bwd.replay_backward(
-            scene, cfg, o, d, time, keys, rec, states, g)
-        # (an optimization_barrier between the sweep and the fold was
-        # tried and measured neutral — unlike the record/replay boundary,
-        # the scheduler doesn't pessimize here, and a barrier would pin
-        # gtex alive for callers that never use atlas gradients)
-    else:
-        def replay(scene, o, d, time, texvals):
-            return _trace_replay(scene, cfg, o, d, time, keys,
-                                 _rec_join_tex(skel, texvals))
+    with jax.named_scope("bwd"):
+        if states is not None:
+            from tracer.render import replay_bwd
+            gscene, go, gd, gtime, gtex = replay_bwd.replay_backward(
+                scene, cfg, o, d, time, keys, rec, states, g)
+        else:
+            def replay(scene, o, d, time, texvals):
+                return _trace_replay(scene, cfg, o, d, time, keys,
+                                     _rec_join_tex(skel, texvals))
 
-        _, vjp = jax.vjp(replay, scene, o, d, time, texvals0)
-        gscene, go, gd, gtime, gtex = vjp(g)
-
-    def fold(data_g, idxs, gs):
-        # Sorted Pallas segment fold on TPU (kernels/fold.py: ~8 ms vs
-        # ~41 ms for the flat XLA scatter at Cornell's 2M updates); flat
-        # interleaved scalar scatter elsewhere.
-        from tracer.kernels import common as kcommon
-        from tracer.kernels import fold as kfold
-        return kfold.fold_updates(data_g, idxs, gs,
-                                  kcommon.use_kernels(cfg))
+            _, vjp = jax.vjp(replay, scene, o, d, time, texvals0)
+            gscene, go, gd, gtime, gtex = vjp(g)
 
     gimg = [(g[..., 0, :], g[..., 1, :], g[..., 2, :]) for g in gtex]
     grnm = [(g[..., 3, :], g[..., 4, :], g[..., 5, :]) for g in gtex]
@@ -1210,16 +790,19 @@ def _trace_cv_bwd(cfg, res, g):
     # The last bounce's fetch is statically skipped when nothing can
     # consume a texel there (integrator._bounce_core fetch_tex): its
     # recorded indices/cotangents are structural zeros — drop them from
-    # the fold instead of scattering 409K zero updates.
+    # the fold instead of scattering one zero update per ray.
     if scene.light_pos.shape[0] == 0 and not scene.emissive_tex_image:
         gimg, grnm = gimg[:-1], grnm[:-1]
         idx_t, idx_n = idx_t[:-1], idx_n[:-1]
-    if scene.tex_data.shape[0] > 1:
-        gscene = dataclasses.replace(
-            gscene, tex_data=fold(gscene.tex_data, idx_t, gimg))
-    if scene.nm_data.shape[0] > 1:
-        gscene = dataclasses.replace(
-            gscene, nm_data=fold(gscene.nm_data, idx_n, grnm))
+    with jax.named_scope("fold"):
+        if scene.tex_data.shape[0] > 1:
+            gscene = dataclasses.replace(
+                gscene, tex_data=fold_texel_updates(gscene.tex_data, idx_t,
+                                                    gimg))
+        if scene.nm_data.shape[0] > 1:
+            gscene = dataclasses.replace(
+                gscene, nm_data=fold_texel_updates(gscene.nm_data, idx_n,
+                                                   grnm))
     gkeys = np.zeros(keys.shape, jax.dtypes.float0)
     return gscene, go, gd, gtime, gkeys
 
@@ -1241,12 +824,7 @@ def trace(scene, cfg: RenderConfig, o, d, time, keys, with_aux=False):
     triangle, Bernoulli shadow factors) and the backward differentiates a
     replay that re-derives only the selected hits -- the candidate
     argmin, BVH walks and shadow search never run in the backward.
-    Disable with cfg.custom_vjp='off' (plain remat'd scan autodiff) —
-    note that with kernels on, the autodiff path's gradients truncate at
-    the stop-gradient'ed Pallas-kernel inputs (normal-mapped normals stop
-    influencing later bounces' derivatives), while the record-replay
-    backward differentiates the full analytic chain: custom_vjp='on' is
-    both the fast AND the exact path on TPU."""
+    Disable with cfg.custom_vjp='off' (plain remat'd scan autodiff)."""
     if with_aux or getattr(cfg, "custom_vjp", "on") == "off":
         return _trace_scan(scene, cfg, o, d, time, keys, with_aux)
     return _trace_cv(scene, cfg, o, d, time, keys)

@@ -1,5 +1,5 @@
-"""Top-level render driver — the TPU-native `ray_trace_from_camera`
-(`/root/reference/main.cpp:200-263`).
+"""Top-level render driver — the wavefront recast of the reference's
+`ray_trace_from_camera` (its `main.cpp:200-263`).
 
 The reference spawns one std::thread per scanline; here the whole
 pixels x samples grid is a flat ray stream processed in jit-compiled
@@ -7,10 +7,9 @@ device batches (and, via tracer/dist, sharded over a device mesh). Samples
 accumulate into a float film; per-pixel mean + gamma 1/2.2 + clamp
 reproduce main.cpp:193-196 / 258-261.
 
-Fast path: `render_pixels` jits ONE frame-chunk — a `lax.map` over the
+Fast path: `render_pixels` jits ONE frame-chunk — a `lax.scan` over the
 sample axis around the traced batch — so a CLI render pays one dispatch per
-chunk, not one per (sample, chunk) (round-1 bench had to build this frame
-by hand to get honest numbers; now it IS the product path).
+chunk, not one per (sample, chunk).
 
 Recovery: pass `ckpt_dir` to render through a `TileManifest` — each tile's
 (film_sum, samples_done) is checkpointed atomically, and a restarted render
@@ -65,8 +64,8 @@ def render_pixels(scene, camera: Camera, cfg: RenderConfig, width: int,
                   height: int, pixel_ids, nsamples: int, base_key):
     """SUM of `nsamples` sample passes for `pixel_ids` — one compiled frame
     chunk (divide by nsamples for the mean radiance). Accumulates inside a
-    scan (a lax.map + sum materializes the full [spp, N, 3] stack in HBM —
-    ~0.5 ms/sample measured at 850x480)."""
+    scan (a lax.map + sum would materialize the full [spp, N, 3] stack in
+    device memory)."""
     def body(acc, s):
         rad = _render_batch(scene, camera, cfg, width, height, pixel_ids,
                             s, base_key)
@@ -98,12 +97,9 @@ def render(scene, camera: Camera, cfg: RenderConfig, width=None, height=None,
                              progress)
 
     n_pix = width * height
-    # Round the chunk up to a whole number of kernel tiles: a tile-multiple
-    # ray count makes every kernel-boundary pad/slice a free reshape (at
-    # 850x480 the per-bounce pad copies cost ~0.5 ms/sample). Wrapped ids
-    # re-render a few pixels; their duplicate radiance is discarded below.
-    from tracer.kernels import common as kc
-    chunk = kc.pad_rows(min(cfg.rays_per_batch, n_pix))
+    # One static chunk shape: the last chunk's wrapped ids re-render a few
+    # pixels, and their duplicate radiance is discarded below.
+    chunk = min(cfg.rays_per_batch, n_pix)
     n_chunks = (n_pix + chunk - 1) // chunk
     ids = np.arange(n_chunks * chunk, dtype=np.int32) % n_pix
 

@@ -9,8 +9,7 @@ product can be written out by hand: ONE reverse scan over bounces, each
 step re-deriving the bounce's primal values from the recorded selections
 and chaining cotangents — no replay forward, no autodiff graph.
 
-This module holds the adjoint MATH as pure planar jnp (runs under XLA and
-inside the Pallas twin, tracer/kernels/shade_bwd.py). It differentiates
+This module holds the adjoint MATH as pure planar jnp. It differentiates
 exactly the computation of the jnp replay path (`integrator._bounce_core`
 with `saved=...` → `_gather_hit_p` / `_scatter_p` / `_finish`), the same
 chain `jax.vjp(replay)` differentiates — verified leaf-by-leaf against it
@@ -33,8 +32,8 @@ Structural facts the derivation uses:
   pure running sum), so it rides as a per-lane constant `gpix` instead of
   a scan carry.
 
-Reference for the computation being differentiated:
-`/root/reference/src/Scene.h:258-342` + `Material.cpp:26-130`.
+Reference for the computation being differentiated: the reference's
+`src/Scene.h:258-342` + `Material.cpp:26-130`.
 """
 
 from __future__ import annotations
@@ -42,7 +41,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from tracer.kernels import common as kc
+from tracer.core import rng
 
 DIFFUSE, GLASS, MIRROR = 0, 1, 2
 TEX_NONE, TEX_CHECKERBOARD, TEX_IMAGE = 0, 1, 2
@@ -63,7 +62,7 @@ def hand_bwd_ok(scene, cfg) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# planar helpers (3-tuples of [N] arrays; run in XLA and in Mosaic)
+# planar helpers (3-tuples of [N] arrays)
 # ---------------------------------------------------------------------------
 
 def _dot(a, b):
@@ -115,10 +114,9 @@ def _norm_bwd(unit, inv, sel, g):
 
 
 def _trunc_mod2(x):
-    """mathutils.trunc_mod2 in the floor form Mosaic can lower: exact for
-    x >= 0 (every REAL textured lane has u,v >= 0 by the quad inside-test;
-    garbage lanes' parity masks never reach an output — kernels/shade.py
-    uses the same argument)."""
+    """mathutils.trunc_mod2 in floor form: exact for x >= 0 (every REAL
+    textured lane has u,v >= 0 by the quad inside-test; garbage lanes'
+    parity masks never reach an output)."""
     t = jnp.floor(x)
     return t - 2.0 * jnp.floor(t * 0.5)
 
@@ -134,8 +132,8 @@ def bounce_bwd(o, d, tp, active, tm, bk, j_enc, img, rnm, ptex, pnm,
     """Adjoint of one replay bounce for the phase-1 class.
 
     Inputs (planar): o/d/tp/img/rnm/go2/gd2/gtp2/gpix 3-tuples of [N];
-    active bool [N]; tm time [N]; bk int32 [N] (bounce-salted PCG key,
-    bitcast view); j_enc recorded winner [N] i32; ptex/pnm present masks
+    active bool [N]; tm time [N]; bk uint32 [N] (bounce-salted PCG key);
+    j_enc recorded winner [N] i32; ptex/pnm present masks
     [N] f32; mrf/srow/qrow per-lane hit rows as COLUMN LISTS (18/8/19 of
     [N]); textype/mtype/use_nm [N] i32 (from the int material row).
     go2/gd2/gtp2 are the next-state cotangents (ignored when last=True).
@@ -314,8 +312,8 @@ def bounce_bwd(o, d, tp, active, tm, bk, j_enc, img, rnm, ptex, pnm,
             cannot = (ri * sin_t - 0.6) > 1.0
         else:
             cannot = (ri * sin_t) > 1.0
-        u_glass = kc.to_unit_i32(kc.pcg_i32(
-            kc.mix_i32(kc.mix_i32(bk, 3), 0)))       # SCATTER_GLASS
+        # the forward's draws (integrator._scatter_p), bit for bit
+        u_glass = rng.uniform(rng.salted(bk, rng.SCATTER_GLASS))
         r0 = (1.0 - ri) / (1.0 + ri)
         r0 = r0 * r0
         mm = jnp.maximum(1.0 - cos_t, 0.0)
@@ -332,11 +330,11 @@ def bounce_bwd(o, d, tp, active, tm, bk, j_enc, img, rnm, ptex, pnm,
         sqm = jnp.sqrt(m_r)
         par = -sqm
         rr = tuple(par * n[a] + pp[a] for a in range(3))
-        skey = kc.mix_i32(bk, 2)                     # SCATTER_DIR
+        skey = rng.salted(bk, rng.SCATTER_DIR)
         if ref:
-            ruv = kc.cube_unit_vector_lane(skey, 0)
+            ruv = rng.cube_unit_vector_p(skey)
         else:
-            ruv = kc.sphere_unit_vector_lane(skey, 0)
+            ruv = rng.sphere_unit_vector_p(skey)
         ddf0 = _add(n, ruv)
         tinyn = jnp.sqrt(_dot(ddf0, ddf0)) <= eps
         is_g = mtype == GLASS
@@ -366,7 +364,7 @@ def bounce_bwd(o, d, tp, active, tm, bk, j_enc, img, rnm, ptex, pnm,
         # par = -sqrt(max(|kkw|, 1e-12))
         g_m = -0.5 / sqm * g_par
         g_kk = jnp.where(kk >= 1e-12, g_m, 0.0)
-        # jnp.sign spelled as selects (Mosaic-safe, identical incl. 0)
+        # jnp.sign spelled as selects (identical incl. 0)
         g_kkw = jnp.where(kkw > 0.0, g_kk,
                           jnp.where(kkw < 0.0, -g_kk, 0.0))
         for a in range(3):
@@ -494,10 +492,9 @@ def bounce_bwd(o, d, tp, active, tm, bk, j_enc, img, rnm, ptex, pnm,
 
 def _onehot_accum(acc_t, idx, rows):
     """acc_t [C, K] += rows [C, N] @ onehot [N, K] — the TRANSPOSED
-    accumulator layout lets both the stack (axis 0 concat of [N] rows)
-    and the matmul run without a single relayout; the caller transposes
-    the small [C, K] result once at the end. Exact: one-hot entries are
-    0/1 (integrator._rows rationale)."""
+    accumulator layout takes the stacked [C, N] rows as they are; the
+    caller transposes the small [C, K] result once at the end. Exact:
+    one-hot entries are 0/1 (integrator._rows rationale)."""
     K = acc_t.shape[1]
     oh = (idx[:, None] == jnp.arange(K, dtype=idx.dtype)[None, :]
           ).astype(jnp.float32)                                  # [N, K]
@@ -507,8 +504,8 @@ def _onehot_accum(acc_t, idx, rows):
 
 def _rows_t(table, idx):
     """integrator._rows with a TRANSPOSED [C, N] result: table.T [C, K]
-    @ onehot_t [K, N] — produces the planar row-major layout the bounce
-    kernels consume with no relayout (same 0/1-exactness argument)."""
+    @ onehot_t [K, N] — the planar row-major layout the bounce adjoint
+    consumes (same 0/1-exactness argument)."""
     K = table.shape[0]
     oh_t = (jnp.arange(K, dtype=idx.dtype)[:, None] == idx[None, :]
             ).astype(table.dtype)                                # [K, N]
@@ -530,7 +527,6 @@ def replay_backward(scene, cfg, o, d, time, keys, rec, states, g):
     so the caller's atlas fold is shared."""
     import dataclasses
 
-    from tracer.core import rng
     from tracer.render import integrator as I
 
     B = cfg.max_bounces
@@ -562,11 +558,8 @@ def replay_backward(scene, cfg, o, d, time, keys, rec, states, g):
         qrow = _rows_t(quad_pack, jq)                        # [19, N]
         mid = jnp.where(j < S, srow[7], qrow[18]).astype(jnp.int32)
         mrf = _rows_t(matf, mid)                             # [18, N]
-        mri = _rows_t(matif, mid)                            # [16, N]
+        mri = _rows_t(matif, mid)                            # [9, N]
         return js, jq, mid, srow, qrow, mrf, mri
-
-    from tracer.kernels import common as kcommon
-    use_k = kcommon.use_kernels(cfg)
 
     def run_bounce(st10, reci, recf, b, gcar, last):
         """gcar [12, N]: go2(3), gd2(3), gtp2(3), gpix(3). Returns the
@@ -575,41 +568,33 @@ def replay_backward(scene, cfg, o, d, time, keys, rec, states, g):
         (js, jq, mid) — everything stays in block form so the reverse
         scan runs with no per-array packing glue."""
         j_enc = reci[0]
-        bk = jax.lax.bitcast_convert_type(rng.salted(keys, b), jnp.int32)
+        bk = rng.salted(keys, b)
         js, jq, mid, srow, qrow, mrf, mri = rows_for(j_enc)
         n_rem = (B - b).astype(jnp.float32)
-        if use_k:
-            from tracer.kernels import shade_bwd as kbwd
-            mr21 = jnp.concatenate([mrf, mri[0:1], mri[7:8], mri[8:9]])
-            a, bb, cc = kbwd.bounce_bwd_tiles(
-                st10, j_enc, recf, mr21, srow, qrow, bk, time,
-                gcar, n_rem, dark, S=S, Q=Q, ref=ref,
-                eps=eps, has_pair=has_pair, last=last)
-        else:
-            o_b = (st10[0], st10[1], st10[2])
-            d_b = (st10[3], st10[4], st10[5])
-            tp_b = (st10[6], st10[7], st10[8])
-            active = st10[9] > 0.5
-            img = (recf[0], recf[1], recf[2])
-            rnm = (recf[3], recf[4], recf[5])
-            ptex, pnm = recf[6], recf[7]
-            (go, gd, gtp, gtm_b, gimg, grnm, gmrf_b, gsr_b, gqr_b,
-             gdark_b) = bounce_bwd(
-                o_b, d_b, tp_b, active, time, bk, j_enc, img, rnm, ptex,
-                pnm, [mrf[c] for c in range(18)],
-                mri[0].astype(jnp.int32), mri[7].astype(jnp.int32),
-                mri[8].astype(jnp.int32), [srow[c] for c in range(8)],
-                [qrow[c] for c in range(19)],
-                (gcar[0], gcar[1], gcar[2]),
-                (gcar[3], gcar[4], gcar[5]),
-                (gcar[6], gcar[7], gcar[8]),
-                (gcar[9], gcar[10], gcar[11]), S=S, Q=Q, ref=ref,
-                eps=eps, n_rem=n_rem, dark=dark, has_pair=has_pair,
-                last=last)
-            a = jnp.stack(list(go) + list(gd) + list(gtp)
-                          + [gtm_b, gdark_b])
-            bb = jnp.stack(list(gimg) + list(grnm))
-            cc = jnp.stack(list(gmrf_b) + list(gsr_b) + list(gqr_b))
+        o_b = (st10[0], st10[1], st10[2])
+        d_b = (st10[3], st10[4], st10[5])
+        tp_b = (st10[6], st10[7], st10[8])
+        active = st10[9] > 0.5
+        img = (recf[0], recf[1], recf[2])
+        rnm = (recf[3], recf[4], recf[5])
+        ptex, pnm = recf[6], recf[7]
+        (go, gd, gtp, gtm_b, gimg, grnm, gmrf_b, gsr_b, gqr_b,
+         gdark_b) = bounce_bwd(
+            o_b, d_b, tp_b, active, time, bk, j_enc, img, rnm, ptex,
+            pnm, [mrf[c] for c in range(18)],
+            mri[0].astype(jnp.int32), mri[7].astype(jnp.int32),
+            mri[8].astype(jnp.int32), [srow[c] for c in range(8)],
+            [qrow[c] for c in range(19)],
+            (gcar[0], gcar[1], gcar[2]),
+            (gcar[3], gcar[4], gcar[5]),
+            (gcar[6], gcar[7], gcar[8]),
+            (gcar[9], gcar[10], gcar[11]), S=S, Q=Q, ref=ref,
+            eps=eps, n_rem=n_rem, dark=dark, has_pair=has_pair,
+            last=last)
+        a = jnp.stack(list(go) + list(gd) + list(gtp)
+                      + [gtm_b, gdark_b])
+        bb = jnp.stack(list(gimg) + list(grnm))
+        cc = jnp.stack(list(gmrf_b) + list(gsr_b) + list(gqr_b))
         return a, bb, cc, js, jq, mid
 
     # ---- last (unrolled) bounce: input state is the scan's final carry
@@ -634,6 +619,10 @@ def replay_backward(scene, cfg, o, d, time, keys, rec, states, g):
     reci_s, recf_s, _ = rec_scan
     gtex_list = [None] * (B - 1)
     for b in range(B - 2, -1, -1):
+        # one barrier per bounce: without it XLA may fuse the whole
+        # unrolled chain and recompute each bounce's adjoint once per
+        # consumer, a cost that grows exponentially with max_bounces
+        gcar = jax.lax.optimization_barrier(gcar)
         a, bb, cc, js, jq, mid = run_bounce(
             st_scan[b], reci_s[b], recf_s[b], jnp.int32(b), gcar, False)
         gmatf = _onehot_accum(gmatf, mid, cc[0:18])

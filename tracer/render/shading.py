@@ -1,7 +1,7 @@
 """Branchless texturing / emission / skybox / normal mapping.
 
-TPU-native recast of `Material::{texture, sphere_texture, emit, get_normal}`
-(`/root/reference/src/Material.cpp:13-130`) and `Scene::skyboxTexture`
+Recast of the reference's `Material::{texture, sphere_texture, emit,
+get_normal}` (`src/Material.cpp:13-130`) and `Scene::skyboxTexture`
 (`Scene.h:149-161`): the C++ switch dispatch becomes masked selects over a
 gathered material row, and texel fetch is a differentiable gather into the
 flat atlas — texels are trainable parameters.
@@ -11,7 +11,6 @@ All functions take per-ray gathered material fields (shape [N] / [N,3]).
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 
 from tracer.core.mathutils import normalize, trunc_mod2, cpp_fmod
@@ -19,162 +18,6 @@ from tracer.core.mathutils import normalize, trunc_mod2, cpp_fmod
 TEX_NONE = 0
 TEX_CHECKERBOARD = 1
 TEX_IMAGE = 2
-
-PACK_BLOCK = 16  # texels per packed-atlas row (scene/device.py PACK_BLOCK)
-
-
-def _packed_decode(pack, idx):
-    """Fetch texel `idx` from a packed-u32 atlas: ONE narrow row gather +
-    in-register one-hot select + u8 decode. Returns planar (r, g, b) f32.
-
-    Bit-identical to `data[idx]` for u8-sourced atlases: both decode as
-    byte->f32 (exact) times the SAME rounded f32(1/255) constant (a
-    multiply — bit-stable under XLA, unlike /255.0 which gets rewritten to
-    a reciprocal multiply). The narrow (64B) low-row-count table is what
-    makes this 4-8x faster than the [P,3] row gather
-    (benchmarks/gather_exp5/6.py)."""
-    row = pack[idx // PACK_BLOCK]                            # [N, 16] i32
-    sub = idx % PACK_BLOCK
-    oh = (sub[:, None] == jnp.arange(PACK_BLOCK, dtype=jnp.int32)[None]
-          ).astype(jnp.int32)
-    v = jnp.sum(row * oh, axis=1)                            # exact select
-    k = jnp.float32(1.0 / 255.0)
-    to = lambda c: c.astype(jnp.float32) * k                 # noqa: E731
-    return (to(jax.lax.shift_right_logical(v, 16) & 0xFF),
-            to(jax.lax.shift_right_logical(v, 8) & 0xFF),
-            to(v & 0xFF))
-
-
-@jax.custom_vjp
-def packed_fetch(data, pack, idx):
-    """Texel fetch `data[idx]` via the packed twin `pack` (fast forward),
-    with the texel gradient scatter-added onto `data` (so texels stay
-    first-class differentiable parameters — Material.cpp:82-88 recast).
-
-    Invariant: `pack` must encode `data` (compile_scene guarantees it).
-    A texture-OPTIMIZATION loop that updates tex_data off the u8 grid must
-    render with cfg.kernels='off' (the exact [P,3] gather path); this fast
-    path is for render/bench forwards where atlases are pristine."""
-    return _packed_decode(pack, idx)
-
-
-def _packed_fetch_fwd(data, pack, idx):
-    return _packed_decode(pack, idx), (data, idx)
-
-
-def _packed_fetch_bwd(res, g):
-    data, idx = res
-    ct = jnp.zeros_like(data).at[idx].add(
-        jnp.stack([g[0], g[1], g[2]], axis=-1))
-    return ct, None, None
-
-
-packed_fetch.defvjp(_packed_fetch_fwd, _packed_fetch_bwd)
-
-
-def _packed_decode2(pack_t, pack_n, idx_t, idx_n):
-    """ONE fused gather serving both the texture and normal-map fetches of
-    a bounce: rows from the two packed atlases are fetched by a single
-    [2N]-index gather over their concatenation. In the packed (low-row-
-    count) regime roughly half the per-fetch cost is per-gather-op overhead
-    (benchmarks/profile_tex_split.py: ~1.45 ms in-context vs 0.92 ms
-    standalone vs ~0.74 ms raw gather), so one 2N gather beats two N ones.
-    """
-    merged = jnp.concatenate([pack_t, pack_n], axis=0)  # hoisted (constant)
-    rt = pack_t.shape[0]
-    rows2 = merged[jnp.concatenate([idx_t // PACK_BLOCK,
-                                    idx_n // PACK_BLOCK + rt])]
-    sub2 = jnp.concatenate([idx_t % PACK_BLOCK, idx_n % PACK_BLOCK])
-    oh = (sub2[:, None] == jnp.arange(PACK_BLOCK, dtype=jnp.int32)[None]
-          ).astype(jnp.int32)
-    v2 = jnp.sum(rows2 * oh, axis=1)
-    k = jnp.float32(1.0 / 255.0)
-    to = lambda c: c.astype(jnp.float32) * k                 # noqa: E731
-    n = idx_t.shape[0]
-    vt, vn = v2[:n], v2[n:]
-    dec = lambda v: (to(jax.lax.shift_right_logical(v, 16) & 0xFF),  # noqa
-                     to(jax.lax.shift_right_logical(v, 8) & 0xFF),
-                     to(v & 0xFF))
-    return dec(vt), dec(vn)
-
-
-@jax.custom_vjp
-def packed_fetch2(data_t, data_n, pack_t, pack_n, idx_t, idx_n):
-    """Fused texture+normal-map texel fetch (see _packed_decode2) with
-    texel gradients scatter-added onto data_t / data_n (same contract as
-    packed_fetch)."""
-    return _packed_decode2(pack_t, pack_n, idx_t, idx_n)
-
-
-def _packed_fetch2_fwd(data_t, data_n, pack_t, pack_n, idx_t, idx_n):
-    return (_packed_decode2(pack_t, pack_n, idx_t, idx_n),
-            (data_t, data_n, idx_t, idx_n))
-
-
-def _packed_fetch2_bwd(res, g):
-    data_t, data_n, idx_t, idx_n = res
-    gt, gn = g
-    ct = jnp.zeros_like(data_t).at[idx_t].add(
-        jnp.stack([gt[0], gt[1], gt[2]], axis=-1))
-    cn = jnp.zeros_like(data_n).at[idx_n].add(
-        jnp.stack([gn[0], gn[1], gn[2]], axis=-1))
-    return ct, cn, None, None, None, None
-
-
-packed_fetch2.defvjp(_packed_fetch2_fwd, _packed_fetch2_bwd)
-
-
-def _paired_decode(pair_pack, row_idx, sub):
-    """Fetch (texture, normal-map) texels from the pair-packed atlas
-    (scene/device.py pair_pack): ONE [N]-row gather of 32-u32 rows serves
-    both per-bounce fetches — the XLA gather is row-count-bound (~2 ns/row,
-    benchmarks/gather_exp8.py), so this halves the dominant cost of a
-    textured bounce. Returns ((r,g,b), (r,g,b)) planar f32, decode
-    bit-identical to data[idx] (same byte -> f32 * f32(1/255))."""
-    rows = pair_pack[row_idx]                                # [N, 32] i32
-    oh = (sub[:, None] == jnp.arange(PACK_BLOCK, dtype=jnp.int32)[None]
-          ).astype(jnp.int32)
-    vt = jnp.sum(rows[:, :PACK_BLOCK] * oh, axis=1)
-    vn = jnp.sum(rows[:, PACK_BLOCK:] * oh, axis=1)
-    k = jnp.float32(1.0 / 255.0)
-    to = lambda c: c.astype(jnp.float32) * k                 # noqa: E731
-    dec = lambda v: (to(jax.lax.shift_right_logical(v, 16) & 0xFF),  # noqa
-                     to(jax.lax.shift_right_logical(v, 8) & 0xFF),
-                     to(v & 0xFF))
-    return dec(vt), dec(vn)
-
-
-@jax.custom_vjp
-def paired_fetch(data_t, data_n, pair_pack, row_idx, sub, idx_t, idx_n,
-                 tex_ok, nm_ok):
-    """Fused texture+normal-map texel fetch through the pair-packed atlas
-    (one gather; see _paired_decode), with texel gradients scatter-added
-    onto data_t / data_n at the true atlas indices idx_t / idx_n (masked by
-    the per-lane validity of each half) — texels stay first-class
-    differentiable parameters (Material.cpp:82-88 recast)."""
-    return _paired_decode(pair_pack, row_idx, sub)
-
-
-def _paired_fetch_fwd(data_t, data_n, pair_pack, row_idx, sub, idx_t, idx_n,
-                      tex_ok, nm_ok):
-    return (_paired_decode(pair_pack, row_idx, sub),
-            (data_t, data_n, idx_t, idx_n, tex_ok, nm_ok))
-
-
-def _paired_fetch_bwd(res, g):
-    data_t, data_n, idx_t, idx_n, tex_ok, nm_ok = res
-    gt, gn = g
-    mt = jnp.where(tex_ok, 1.0, 0.0)
-    mn = jnp.where(nm_ok, 1.0, 0.0)
-    ct = jnp.zeros_like(data_t).at[idx_t].add(
-        jnp.stack([gt[0] * mt, gt[1] * mt, gt[2] * mt], axis=-1))
-    cn = jnp.zeros_like(data_n).at[idx_n].add(
-        jnp.stack([gn[0] * mn, gn[1] * mn, gn[2] * mn], axis=-1))
-    return ct, cn, None, None, None, None, None, None, None
-
-
-paired_fetch.defvjp(_paired_fetch_fwd, _paired_fetch_bwd)
-
 
 def _atlas_fetch(data, off, w, h, slot, u, v, scale_x, scale_y):
     """Nearest-texel fetch replicating Material.cpp:82-88:
@@ -293,12 +136,7 @@ from tracer.core import vec3p as vp  # noqa: E402
 
 def _atlas_fetch_p(data, off, w, h, slot, u, v, scale_x, scale_y):
     """Planar twin of _atlas_fetch: returns ((r,g,b) [N], present [N]).
-
-    ONE row-gather `data[idx]` instead of three planar column gathers: the
-    atlas gather is the measured hot spot of the whole bounce loop
-    (benchmarks/gather_exp.py: [P,3] row gather 2.8 ms vs 3x planar 11 ms at
-    N=408K, P=1.24M on v5e), and row cost is width-bound, not column-bound.
-    """
+    ONE row-gather `data[idx]` instead of three planar column gathers."""
     W = w[slot]
     H = h[slot]
     present = (W > 0) & (H > 0)
@@ -319,19 +157,6 @@ def _magenta_checker_p(u, v):
     return (on, jnp.zeros_like(on), on)
 
 
-def _texel_xy(W, H, u, v, sx, sy):
-    """Image-relative nearest-texel (x, y) (Material.cpp:82-88) — the
-    staircase coordinates the pair-packed fetch sums (scene/device.py
-    pair regions; W=0 yields (0, 0))."""
-    uu = cpp_fmod(u * sx, 1.0)
-    vv = 1.0 - cpp_fmod(v * sy, 1.0)
-    x = jnp.trunc(uu * (W - 1).astype(jnp.float32)).astype(jnp.int32)
-    y = jnp.trunc(vv * (H - 1).astype(jnp.float32)).astype(jnp.int32)
-    x = jnp.clip(x, 0, jnp.maximum(W - 1, 0))
-    y = jnp.clip(y, 0, jnp.maximum(H - 1, 0))
-    return x, y
-
-
 def _texel_index(P, off_r, W, H, u, v, sx, sy):
     """Nearest-texel flat index (Material.cpp:82-88) + present mask."""
     present = (W > 0) & (H > 0)
@@ -343,17 +168,6 @@ def _texel_index(P, off_r, W, H, u, v, sx, sy):
     y = jnp.clip(y, 0, jnp.maximum(H - 1, 0))
     idx = jnp.clip(off_r + y * W + x, 0, P - 1)
     return idx, present
-
-
-def atlas_fetch_rows_p(data, off_r, W, H, u, v, sx, sy, pack=None):
-    """_atlas_fetch_p with the per-ray (offset, W, H) already gathered
-    (from a packed material row). With `pack` (the atlas's packed-u32
-    twin): one narrow packed-row gather via packed_fetch (fast path);
-    without: one data[idx] row gather (exact-differentiable path)."""
-    idx, present = _texel_index(data.shape[0], off_r, W, H, u, v, sx, sy)
-    if pack is not None:
-        return packed_fetch(data, pack, idx), present
-    return vp.splat(data[idx]), present
 
 
 def tex_image_fetch_p(scene, mid, u, v):
@@ -415,10 +229,8 @@ def perturb_normal_p(scene, mid, u, v, tangent, bitangent, normal):
     return vp.where(use, n2, normal)
 
 
-def skybox_color_p(scene, d, n_remaining, compat_reference: bool,
-                   packed: bool = False):
-    """Planar Scene::skyboxTexture (Scene.h:149-161). `packed` routes the
-    equirect texel fetch through the packed-u32 twin (fast path)."""
+def skybox_color_p(scene, d, n_remaining, compat_reference: bool):
+    """Planar Scene::skyboxTexture (Scene.h:149-161)."""
     if scene.has_sky_image:
         u = 0.5 + jnp.arctan2(d[2], d[0]) / (2.0 * jnp.pi)
         v = 0.5 - jnp.arcsin(jnp.clip(d[1], -1.0, 1.0)) / jnp.pi
@@ -427,10 +239,7 @@ def skybox_color_p(scene, d, n_remaining, compat_reference: bool,
         y = jnp.clip((v * scene.sky_h.astype(jnp.float32)).astype(jnp.int32),
                      0, scene.sky_h - 1)
         idx = jnp.clip(y * scene.sky_w + x, 0, scene.sky_data.shape[0] - 1)
-        if packed and scene.sky_pack.shape[0] > 1:
-            col = packed_fetch(scene.sky_data, scene.sky_pack, idx)
-        else:
-            col = vp.splat(scene.sky_data[idx])  # one row gather
+        col = vp.splat(scene.sky_data[idx])  # one row gather
         if compat_reference:
             col = vp.scale(n_remaining.astype(jnp.float32), col)
         return col

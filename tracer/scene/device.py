@@ -1,11 +1,11 @@
 """Scene compiler: SceneBuilder -> DeviceScene (SoA jnp pytree).
 
 The reference keeps typed object lists and virtual-ish dispatch
-(`/root/reference/src/Scene.h:57-65`, switch at `Scene.h:270-304`). The TPU
-recast is one flat SoA table per primitive class plus a material parameter
-table indexed by a per-primitive material id — shading becomes branchless
-gathers + `jnp.where` selects, and intersection becomes `[N,3] @ [3,K]`
-contractions over the whole table at once.
+(`src/Scene.h:57-65`, switch at `Scene.h:270-304`). The recast here is one
+flat SoA table per primitive class plus a material parameter table indexed
+by a per-primitive material id — shading becomes branchless gathers +
+`jnp.where` selects, and intersection becomes elementwise tests of every
+ray against the whole table at once.
 
 Textures live in a single flat atlas (`tex_data [P,3]`) with per-texture
 (offset, w, h); texel fetch is a differentiable gather, so texels are
@@ -14,7 +14,7 @@ trainable parameters. Normal maps and the skybox use the same scheme.
 Triangle meshes are concatenated into one global soup with per-mesh BVHs
 flattened into shared arrays (`bvh_*`), preserving the reference's per-mesh
 closest-hit semantics (`Scene.h:222-228` loops meshes) while letting the
-traversal kernel walk a contiguous node range per mesh.
+BVH walk cover a contiguous node range per mesh.
 
 All shapes are static per scene => one XLA compilation per scene topology.
 Padded rows are masked via `*_valid`.
@@ -105,30 +105,11 @@ class DeviceScene:
     nm_off: jnp.ndarray
     nm_w: jnp.ndarray
     nm_h: jnp.ndarray
-    # Packed-u32 block twins of the atlases (shading.packed_fetch): texel
-    # RGB bytes packed 0xRRGGBB, PACK_BLOCK texels per row. Derived from the
-    # same u8 images as tex_data/nm_data (decode is bit-identical); NOT a
-    # trainable leaf — texel gradients flow to tex_data/nm_data via the
-    # fetch's custom VJP.
-    tex_pack: jnp.ndarray        # [ceil(P/16), 16] i32
-    nm_pack: jnp.ndarray         # [ceil(Pn/16), 16] i32
-    sky_pack: jnp.ndarray        # [ceil(Ps/16), 16] i32
     # Pair-packed atlas: ONE row = 16 texture words (cols 0:16) + the 16
-    # normal-map words of the SAME texel indices (cols 16:32). One N-row
-    # gather per bounce then serves BOTH fetches — the per-row-count-bound
-    # XLA gather is the measured hot spot of the whole frame
-    # (benchmarks/gather_exp8.py: ~2 ns/row regardless of width), so
-    # halving row count is ~2x on the texture path. Built per (tex slot,
-    # nm slot) pair region; only usable when every quad material that has
-    # both an image texture and a normal map has MATCHING dims (pair_mode).
+    # normal-map words of the SAME texel indices (cols 16:32), built per
+    # (tex slot, nm slot) pair region. Only the hand-written backward's
+    # scene-class gate reads it (replay_bwd.hand_bwd_ok, with pair_mode).
     pair_pack: jnp.ndarray       # [Rp, 32] i32
-    mat_pair_off: jnp.ndarray    # [M] i32 pair-region row offset
-    mat_pair_wa: jnp.ndarray     # [M] i32 primary index-space width
-    mat_pair_ha: jnp.ndarray     # [M] i32 primary index-space height
-    mat_pair_wb: jnp.ndarray     # [M] i32 product-region 2nd width (0=plain)
-    mat_pair_hb: jnp.ndarray     # [M] i32 product-region 2nd height
-    mat_pair_tex: jnp.ndarray    # [M] i32 1 = cols 0:16 hold real texels
-    mat_pair_nm: jnp.ndarray     # [M] i32 1 = cols 16:32 hold real texels
 
     # --- lights ----------------------------------------------------------
     light_pos: jnp.ndarray       # [L, 3]
@@ -151,12 +132,10 @@ class DeviceScene:
     #   (when False and a bounce's diffuse is dead — last bounce, no
     #   lights — the integrator statically skips the texture gather:
     #   emission then provably never selects the fetched texel)
-    n_sph_real: int = 0   # real (non-padding) sphere count: kernels loop
-    n_quad_real: int = 0  # only over real rows (pads have valid=0 anyway)
+    n_sph_real: int = 0   # real (non-padding) sphere count
+    n_quad_real: int = 0  # real quad count (pads have valid=0)
     sphere_uv_needed: bool = False    # some sphere material has a textype
-    #   (checker or image): sphere u/v need theta/phi, whose arccos/atan2
-    #   cannot run in a Mosaic kernel, so texel indices must be computed
-    #   in XLA instead of inside the first-hit kernel (kernels/intersect)
+    #   (checker or image), so sphere hits need theta/phi texture coords
 
     # --- static helpers --------------------------------------------------
     @property
@@ -202,30 +181,12 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m if x > 0 else 0
 
 
-PACK_BLOCK = 16  # texels per packed-atlas row (shading.packed_fetch)
+PACK_BLOCK = 16  # texels per pair-atlas row half
 
 
-def _pack_u8_atlas(rows_u8: np.ndarray) -> np.ndarray:
-    """[P, 3] u8 texels -> [ceil(P/16), 16] i32, 0xRRGGBB per texel.
-
-    Row-count reduction is the point: XLA's TPU gather costs ~7 ns/row on a
-    1.2M-row table but ~1-2 ns/row under ~100K rows (benchmarks/
-    gather_exp{3,5,6}.py), so fetching one 16-texel row + an in-register
-    one-hot select is ~4-8x faster than the naive [P,3] row gather."""
-    P = rows_u8.shape[0]
-    rows = max((P + PACK_BLOCK - 1) // PACK_BLOCK, 1)
-    v = rows_u8.astype(np.int32)
-    packed = (v[:, 0] << 16) | (v[:, 1] << 8) | v[:, 2]
-    out = np.zeros(rows * PACK_BLOCK, np.int32)
-    out[:P] = packed
-    return out.reshape(rows, PACK_BLOCK)
-
-
-def _atlas(images) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray,
+def _atlas(images) -> tuple[np.ndarray, np.ndarray, np.ndarray,
                             np.ndarray]:
-    """Pack images (uint8 [H,W,3] or None) into a flat float atlas plus its
-    packed-u32 twin (same texel order; decode is bit-identical because both
-    store byte/255 in f32).
+    """Pack images (uint8 [H,W,3] or None) into a flat float atlas.
 
     Slot 0 is always the 'missing' entry (w=h=0) so material slot 0 means
     'no texture' and missing images trigger the reference's fallbacks.
@@ -246,13 +207,9 @@ def _atlas(images) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray,
         hs.append(h)
         cursor += h * w
     rows_u8 = np.concatenate(data, axis=0)
-    # byte -> [0,1] by MULTIPLY with f32(1/255), not division: XLA rewrites
-    # /255.0 into a reciprocal multiply, so a multiply with the identical
-    # rounded constant is the only decode that is bit-identical between
-    # this host-side build and the on-device packed_fetch decode.
     return (rows_u8.astype(np.float32) * np.float32(1.0 / 255.0),
             np.asarray(off, np.int32), np.asarray(ws, np.int32),
-            np.asarray(hs, np.int32), _pack_u8_atlas(rows_u8))
+            np.asarray(hs, np.int32))
 
 
 TEX_IMAGE = 2  # builder Material.texture_type image value (shading.TEX_IMAGE)
@@ -271,8 +228,8 @@ def _axis_pairs(Wa: int, Wb: int):
     UNIQUE pair; this is what lets two images of different widths share one
     fetch index (DeviceScene.pair_pack product regions). The walk samples
     ulp-neighborhoods of every exact breakpoint plus interval midpoints in
-    f32 — the same arithmetic the device fetch uses (shading._texel_rel) —
-    so the table covers exactly the pairs the device can produce. Returns
+    f32 — the arithmetic of the nearest-texel staircase — so the table
+    covers exactly the pairs f32 texture coordinates can produce. Returns
     (xa[s], xb[s], ok) with -1 at unachievable sums; ok=False on a
     consistency violation (caller falls back to pair_mode=False).
     """
@@ -332,32 +289,19 @@ def _build_pair_atlas(mats, quad_rows, textures, normal_maps):
     rel = (y_t+y_n)*(Wt+Wn-1) + (x_t+x_n) — monotone-staircase sums
     uniquely identify the (tex, nm) texel pair (see _axis_pairs).
 
-    Returns (pack [Rp,32] i32, off[M], wa[M], ha[M], wb[M], hb[M],
-    tex_ok[M], nm_ok[M], pair_mode).
+    Returns (pack [Rp,32] i32, pair_mode).
     """
-    M = len(mats)
-    off = np.zeros(M, np.int32)
-    wa = np.zeros(M, np.int32)
-    ha = np.zeros(M, np.int32)
-    wb = np.zeros(M, np.int32)
-    hb = np.zeros(M, np.int32)
-    tex_ok = np.zeros(M, np.int32)
-    nm_ok = np.zeros(M, np.int32)
     empty = np.zeros((1, 2 * PACK_BLOCK), np.int32)
 
     def bail():
-        z = np.zeros(M, np.int32)
-        return (jnp.asarray(empty), jnp.asarray(z), jnp.asarray(z),
-                jnp.asarray(z), jnp.asarray(z), jnp.asarray(z),
-                jnp.asarray(z), jnp.asarray(z), False)
+        return jnp.asarray(empty), False
 
     def word(img):
         v = img.reshape(-1, 3).astype(np.int32)
         return (v[:, 0] << 16) | (v[:, 1] << 8) | v[:, 2]
 
-    regions: dict = {}
+    regions = set()
     blocks = []
-    cursor = 0
     total_entries = 0
     for mi, m in enumerate(mats):
         is_quad = mi in quad_rows
@@ -403,7 +347,6 @@ def _build_pair_atlas(mats, quad_rows, textures, normal_maps):
                     [tw, np.zeros(rows * PACK_BLOCK - P, np.int32)])
                 nw = np.concatenate(
                     [nw, np.zeros(rows * PACK_BLOCK - P, np.int32)])
-                dims = (Wt, Ht, Wn, Hn)
             else:
                 base = timg if timg is not None else nimg
                 H, W = base.shape[:2]
@@ -418,21 +361,12 @@ def _build_pair_atlas(mats, quad_rows, textures, normal_maps):
                     tw[:P] = word(timg)
                 if nimg is not None:
                     nw[:P] = word(nimg)
-                dims = (W, H, 0, 0)
             blocks.append(np.concatenate(
                 [tw.reshape(rows, PACK_BLOCK),
                  nw.reshape(rows, PACK_BLOCK)], axis=1))
-            regions[key] = (cursor,) + dims
-            cursor += rows
-        o, Wa_, Ha_, Wb_, Hb_ = regions[key]
-        off[mi] = o
-        wa[mi], ha[mi], wb[mi], hb[mi] = Wa_, Ha_, Wb_, Hb_
-        tex_ok[mi] = 1 if timg is not None else 0
-        nm_ok[mi] = 1 if nimg is not None else 0
+            regions.add(key)
     pack = np.concatenate(blocks, axis=0) if blocks else empty
-    return (jnp.asarray(pack), jnp.asarray(off), jnp.asarray(wa),
-            jnp.asarray(ha), jnp.asarray(wb), jnp.asarray(hb),
-            jnp.asarray(tex_ok), jnp.asarray(nm_ok), True)
+    return jnp.asarray(pack), True
 
 
 def compile_scene(sb: B.SceneBuilder, leaf_width: int = 16,
@@ -609,13 +543,12 @@ def compile_scene(sb: B.SceneBuilder, leaf_width: int = 16,
     mat_tex = np.asarray([m.texture_id + 1 for m in mats], np.int32)
     mat_nm = np.asarray([m.normal_map_id + 1 for m in mats], np.int32)
 
-    tex_data, tex_off, tex_w, tex_h, tex_pack = _atlas(sb.textures)
-    nm_data, nm_off, nm_w, nm_h, nm_pack = _atlas(sb.normal_maps)
+    tex_data, tex_off, tex_w, tex_h = _atlas(sb.textures)
+    nm_data, nm_off, nm_w, nm_h = _atlas(sb.normal_maps)
 
     quad_rows = set(int(quad_mat[i]) for i in range(Q))
-    (pair_pack, mat_pair_off, mat_pair_wa, mat_pair_ha, mat_pair_wb,
-     mat_pair_hb, mat_pair_tex, mat_pair_nm, pair_mode) = _build_pair_atlas(
-        mats, quad_rows, sb.textures, sb.normal_maps)
+    pair_pack, pair_mode = _build_pair_atlas(mats, quad_rows, sb.textures,
+                                             sb.normal_maps)
 
     # ---- lights ---------------------------------------------------------
     L = len(sb.lights)
@@ -630,11 +563,9 @@ def compile_scene(sb: B.SceneBuilder, leaf_width: int = 16,
         sh, sw = sb.skybox.shape[:2]
         sky_u8 = sb.skybox.reshape(-1, 3).astype(np.uint8)
         sky_data = sky_u8.astype(np.float32) * np.float32(1.0 / 255.0)
-        sky_pack = _pack_u8_atlas(sky_u8)
     else:
         sh = sw = 0
         sky_data = np.zeros((1, 3), np.float32)
-        sky_pack = np.zeros((1, PACK_BLOCK), np.int32)
 
     jf = jnp.asarray
     return DeviceScene(
@@ -665,11 +596,7 @@ def compile_scene(sb: B.SceneBuilder, leaf_width: int = 16,
         tex_data=jf(tex_data), tex_off=jf(tex_off), tex_w=jf(tex_w),
         tex_h=jf(tex_h),
         nm_data=jf(nm_data), nm_off=jf(nm_off), nm_w=jf(nm_w), nm_h=jf(nm_h),
-        tex_pack=jf(tex_pack), nm_pack=jf(nm_pack), sky_pack=jf(sky_pack),
-        pair_pack=pair_pack, mat_pair_off=mat_pair_off,
-        mat_pair_wa=mat_pair_wa, mat_pair_ha=mat_pair_ha,
-        mat_pair_wb=mat_pair_wb, mat_pair_hb=mat_pair_hb,
-        mat_pair_tex=mat_pair_tex, mat_pair_nm=mat_pair_nm,
+        pair_pack=pair_pack,
         light_pos=jf(light_pos), light_radius=jf(light_radius),
         light_color=jf(light_color),
         sky_data=jf(sky_data), sky_w=jf(np.int32(sw)), sky_h=jf(np.int32(sh)),

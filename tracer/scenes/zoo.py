@@ -4,8 +4,10 @@ Each `setup_*` mirrors the corresponding builder in
 `/root/reference/src/Scene.h:358-1882` (registered at `main.cpp:421-432`):
 object placement, transforms, materials, lights, textures and skyboxes are
 value-for-value identical. Assets (PPM textures, OFF meshes) load from an
-asset root (env `TRACER_ASSETS`, default: the reference checkout if
-present); missing assets degrade exactly like the reference — skyboxes fall
+asset root (env `TRACER_ASSETS`, then the repository's `assets/`, then the
+reference checkout if present). The Cornell box's five image maps are
+generated into `assets/` on first use (tracer/scenes/maps.py). Other
+missing assets degrade exactly like the reference — skyboxes fall
 back to the procedural sky (`imageLoader.cpp:24-28` + `Scene.h:150-153`),
 missing textures render the magenta checker (`Material.cpp:74-81`) — except
 missing meshes, which are skipped instead of `exit(EXIT_FAILURE)`
@@ -22,15 +24,20 @@ from tracer.scene.builder import (
     SceneBuilder, Material, MeshObject, DIFFUSE, GLASS, MIRROR,
     TEX_NONE, TEX_CHECKERBOARD, TEX_IMAGE,
 )
+from tracer.scenes import maps
 
+_REPO_ASSETS = os.path.join(os.path.dirname(__file__), "..", "..", "assets")
 _DEFAULT_ROOTS = [
     os.environ.get("TRACER_ASSETS", ""),
-    os.path.join(os.path.dirname(__file__), "..", "..", "assets"),
+    _REPO_ASSETS,
     "/root/reference",
 ]
 
 
 def asset(path: str) -> str:
+    if path in maps.MAPS:
+        # procedural stand-in, written under assets/ on first use
+        maps.ensure(path, _REPO_ASSETS)
     for root in _DEFAULT_ROOTS:
         if root:
             p = os.path.join(root, path)

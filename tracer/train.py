@@ -1,7 +1,7 @@
 """Differentiable-rendering optimization loop — the framework's `fit()`.
 
-The reference is a one-shot renderer (`rendu.ppm`,
-/root/reference/main.cpp:251-262); inverse rendering is this framework's
+The reference is a one-shot renderer (`rendu.ppm`, its
+`main.cpp:251-262`); inverse rendering is this framework's
 own north-star surface (BASELINE.md gradient-fidelity metric): given a
 target image, recover trainable scene parameters (sphere geometry,
 material albedos, texture/normal-map texels, mesh vertices, camera pose)
@@ -12,11 +12,7 @@ Product path (SURVEY.md section 5 checkpoint/resume + observability):
 - per-step JSON metrics (loss, global grad norm, step time);
 - (params, opt state, step) checkpoints with EXACT resume: leaves are
   saved bit-for-bit with np.savez and restored into the same pytree
-  structure, so an interrupted run continues on the identical trajectory;
-- stale-pack safety: when atlas texels (tex_data / nm_data) are trainable
-  the packed-u32/pair fast paths are auto-disabled
-  (cfg.packed_atlas="off") — the packed twins encode the pristine u8
-  atlases and cannot represent off-grid texels.
+  structure, so an interrupted run continues on the identical trajectory.
 
 Scope: gradients flow through the SHADING of the selected hits (albedo,
 texels, normals, positions at fixed visibility) — hit selection is
@@ -52,7 +48,6 @@ SCENE_FIELDS = ("sph_center", "sph_radius", "mat_diffuse", "mat_ior",
                 "mat_light_color", "mat_light_intensity",
                 "tex_data", "nm_data", "mesh_verts",
                 "quad_v0", "quad_er", "quad_eu")
-ATLAS_FIELDS = ("tex_data", "nm_data")
 CAM_FIELD = "cam_position"
 CAM_QUAT_FIELD = "cam_quaternion"
 CAM_FIELDS = (CAM_FIELD, CAM_QUAT_FIELD)
@@ -87,27 +82,6 @@ def apply_params(scene, camera: Camera, params: Dict):
         camera = dataclasses.replace(camera,
                                      quaternion=params[CAM_QUAT_FIELD])
     return scene, camera
-
-
-def guard_config(cfg: RenderConfig, trainable: Sequence[str]):
-    """Disable the packed-atlas fast paths when atlas texels are live
-    optimization parameters (stale-pack trap — see module docstring)."""
-    if any(k in ATLAS_FIELDS for k in trainable):
-        return dataclasses.replace(cfg, packed_atlas="off")
-    return cfg
-
-
-def invalidate_packs(scene):
-    """Scene with the packed-atlas twins replaced by 1-row sentinels.
-
-    After texel optimization tex_data/nm_data leave the u8 grid the packs
-    encode; sentinel packs make EVERY later render fall back to the exact
-    row-gather paths regardless of cfg (the integrator's fast-path
-    dispatch requires pack rows > 1)."""
-    z = jnp.zeros((1, 16), jnp.int32)
-    return dataclasses.replace(
-        scene, pair_mode=False, pair_pack=jnp.zeros((1, 32), jnp.int32),
-        tex_pack=z, nm_pack=z, sky_pack=z)
 
 
 def _save_ckpt(path: str, step: int, params, opt_state):
@@ -188,7 +162,6 @@ def fit(scene, camera: Camera, cfg: RenderConfig, target,
     width = width or cfg.width
     height = height or cfg.height
     nsamples = nsamples or cfg.nsamples
-    cfg = guard_config(cfg, trainable)
     base_key = base_key if base_key is not None else jax.random.key(cfg.seed)
     target = jnp.asarray(target, jnp.float32).reshape(-1, 3)
     pixel_ids = jnp.arange(width * height, dtype=jnp.int32)
@@ -223,6 +196,4 @@ def fit(scene, camera: Camera, cfg: RenderConfig, target,
             _save_ckpt(ckpt_path, s + 1, params, opt_state)
 
     scene, camera = apply_params(scene, camera, params)
-    if any(k in ATLAS_FIELDS for k in trainable):
-        scene = invalidate_packs(scene)
     return scene, camera, history
